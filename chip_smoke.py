@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA H100.
 
     python3 chip_smoke.py                  # needs one CUDA card
-    python3 chip_smoke.py --profile DIR    # adds a torch.profiler window;
-                                           # its trace goes to DIR
+    python3 chip_smoke.py --profile DIR    # adds torch.profiler windows over
+                                           # the routed and the fused step;
+                                           # their traces go to DIR
 
 Phases (any failure raises and exits non-zero):
 
@@ -24,7 +25,23 @@ Phases (any failure raises and exits non-zero):
    backward) the same way;
 7. the ``bench.py`` training step (forward → MSE → grad → update) timed
    with CUDA events, and per-kernel times beside their plain versions,
-   one PyTorch library call (``torch.sparse`` CSR mv) and the bound.
+   one PyTorch library call (``torch.sparse`` CSR mv) and the bound;
+8. fused mode on the flagship, forward only: ``Operator(mode='fused')``
+   builds no tables; the ``fused_fwd`` kernel against its plain version
+   and against the routed kernel's image of the same rays, rays outside
+   the tolerance counted (knife-edge midpoint ties), its peak memory
+   beside the routed tables' bytes;
+9. fused mode's main path: ``retrieval.gd`` for 20 iterations through
+   ``fused_fwd`` + ``routed_bwd_gather`` on lazily built backward-only
+   tables, counters reset just before and read just after; then 5
+   iterations with ``routed_dense='off'`` (``routed_bwd_scatter``);
+10. the dynamic ``view_times`` configuration of
+   ``examples/dynamic_measurements.py`` at full size (20 time bins of
+   50³, 40 ``ConeCircGeom((100, 50))`` views, 200,000 rays): the lerp
+   kernel against its plain version and one gradient through the lazy
+   backward on the doubled tables;
+11. fused timings: ``fused_fwd`` beside its plain version and its bound
+   (operations), the fused training step.
 
 Before the last line: the card's name and power limit, then the
 ``{"kernels": [...]}`` line; the last line is
@@ -45,8 +62,16 @@ REPLACES = {
     "routed_fwd": "sph_raytracer_tpu/ops/routed_project.py:581",
     "routed_bwd_gather": "sph_raytracer_tpu/ops/routed_project.py:905",
     "routed_bwd_scatter": "sph_raytracer_tpu/ops/routed_project.py:1142",
+    "fused_fwd": "sph_raytracer_tpu/ops/fused_pallas.py:138",
 }
 SOURCE = "sph_raytracer_tpu_torch/csrc/routed_project.cu"
+FUSED_SOURCE = "sph_raytracer_tpu_torch/csrc/fused_project.cu"
+# kernel vs plain version, and fused vs routed image (two f32 traces): a
+# ray whose segment midpoint lies on a boundary may label either
+# neighbour (fused_pallas.py:32-38); at most this share of rays may
+# miss the tolerance, and each run prints how many did and by how much
+KNIFE_KERNEL = 1e-4
+KNIFE_ROUTED = 1e-3
 
 
 def log(*a):
@@ -80,6 +105,57 @@ def check_close(name, got, want, rtol, atol):
     return err
 
 
+def check_rays(name, got, want, rtol, atol, allow_frac):
+    """Per-ray check that lets at most ``allow_frac`` of the rays miss the
+    tolerance (knife-edge labels); prints how many did and by how much."""
+    diff = (got.double() - want.double()).abs()
+    bad = diff > atol + rtol * want.double().abs()
+    n_bad, allow = int(bad.sum()), int(allow_frac * got.numel())
+    err = float(diff.max())
+    worst = float(diff[bad].max()) if n_bad else 0.0
+    log(f"[check] {name}: max_abs_err={err:.3e}; {n_bad} of {got.numel()} "
+        f"rays outside rtol={rtol}, atol={atol:.3e} (largest miss "
+        f"{worst:.3e}, at most {allow} allowed) "
+        f"{'ok' if n_bad <= allow else 'FAIL'}")
+    if n_bad > allow:
+        raise AssertionError(f"{name}: {n_bad} rays outside the tolerance")
+    return err
+
+
+def fused_live(torch, fp, gs, rays, block=8192):
+    """Live segments (finite, > 0, t >= 0) over all rays: the segments
+    whose voxel ``fused_fwd`` searches for, counted on this run's rays."""
+    tab = fp.boundary_table(gs, rays.xs.device)
+    n = 0
+    for i in range(0, rays.n, block):
+        ts = torch.sort(fp._crossings(gs, tab, rays.xs[i:i + block],
+                                      rays.dirs[i:i + block]), dim=1).values
+        n += int(fp._segments(ts)[1].sum())
+    return n
+
+
+def fused_ops(gs, n_rays, mp, live, lerp):
+    """f32 operations (arithmetic, compares, min/max) of ``fused_fwd``,
+    counted from csrc/fused_project.cu: the per-ray prologue (30), a
+    sphere row (4), a cone row (38), an azimuth row (25), the bitonic
+    network (Mp·L(L+1)/4 compare-exchanges of 2 ops, L = log2 Mp), 5 per
+    sorted element (length, live test), the warp reduce (5 adds on 32
+    lanes); per live segment the midpoint and |p| (14), the three 7-step
+    searches (7 + 14 + 35) and the gather-multiply-add (2, lerp 7)."""
+    L = mp.bit_length() - 1
+    per_ray = (30 + 4 * 2 * (gs.nr + 1) + 38 * 2 * (gs.ne + 1)
+               + 25 * (gs.na + 1) + mp * L * (L + 1) // 2 + 5 * mp + 160)
+    return n_rays * per_ray + live * (14 + 56 + (7 if lerp else 2))
+
+
+def fused_bytes(n_rays, n_flat, off0, lerp):
+    """Bytes ``fused_fwd`` must move: xs, dirs (12 B each), y (4 B),
+    off0 / off1 / w (4 B each where present) per ray, the density and
+    the 5,120 B boundary table once."""
+    per_ray = 28 + 4 * off0 + 8 * lerp
+    return n_rays * per_ray + 4 * n_flat + 5120
+
+
 def orbit(prt, views, det, z=0.3):
     return sum(prt.ConeRectGeom(det, pos=(2 * np.cos(t), 2 * np.sin(t), z),
                                 fov=(45, 45))
@@ -93,7 +169,8 @@ def main(argv):
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="profile 5 training steps; write the trace to DIR")
+                    help="profile 5 routed and 5 fused training steps; "
+                    "write the traces to DIR")
     profile_dir = ap.parse_args(argv).profile
 
     if not torch.cuda.is_available():
@@ -101,6 +178,7 @@ def main(argv):
         return 2
     sys.path.insert(0, HERE)
     import sph_raytracer_tpu_torch as prt
+    from sph_raytracer_tpu_torch.ops import fused_project as fp
     from sph_raytracer_tpu_torch.ops import routed_project as rp
     from sph_raytracer_tpu_torch.ops.project import precompute_table
     from sph_raytracer_tpu_torch.ops.trace import GridSpec
@@ -303,19 +381,209 @@ def main(argv):
             f"library {lib_ms:.4f} ms, bound {max(byte_ms, op_ms):.4f} ms "
             f"({bytes_[name]} bytes), {byte_ms / ms:.1%} of the bound")
 
+    # 8. fused mode on the flagship, forward only ---------------------------
+    torch.cuda.synchronize()
+    t0 = time.time()
+    opf = prt.Operator(grid, geom, mode="fused")
+    torch.cuda.synchronize()
+    fsetup_s = time.time() - t0
+    if not (opf._engine and opf._fused_bwd_lazy and opf._fused_btd is None
+            and opf._tables is None and opf.lin is None):
+        raise AssertionError("fused operator built tables or left the engine")
+    frays, fgs = opf._frays, opf.gs
+    mp = fp.padded_crossings(fgs)
+    log(f"[fused] construction {fsetup_s:.3f} s, no tables; "
+        f"M={fgs.num_crossings}, Mp={mp}")
+    y_fk = fp.fused_fwd(fgs, frays, d)
+    y_fr = fp.fused_fwd_ref(fgs, frays, d)
+    errs["fused_fwd"] = check_rays(
+        "fused_fwd vs its plain version", y_fk, y_fr, 1e-5,
+        1e-5 * float(y_fr.abs().max()), KNIFE_KERNEL)
+    # the routed kernel's image of the same rays (the port's f32 trace,
+    # atan2 labels) at tests/test_fused_pallas.py's tolerances
+    check_rays("fused_fwd vs routed_fwd image", y_fk, rp.routed_fwd(tab, d),
+               1e-4, 2e-5, KNIFE_ROUTED)
+    with torch.no_grad():
+        y_op = opf(d.reshape(tuple(grid.shape)))
+    if opf._fused_btd is not None or not torch.equal(
+            y_op.reshape(-1), y_fk):
+        raise AssertionError("fused forward built tables or differs")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fp.fused_fwd(fgs, frays, d)
+    torch.cuda.synchronize()
+    ray_bytes = sum(t.numel() * t.element_size() for t in frays
+                    if t is not None)
+    log(f"[fused] forward peak memory above resident "
+        f"{torch.cuda.max_memory_allocated() - base} B, per-ray inputs "
+        f"{ray_bytes} B; routed tables {tab.nbytes} B")
+
+    # 9. fused mode's main path: gd through fused_fwd + the lazy backward ---
+    with torch.no_grad():
+        yf = opf(truth)
+    torch.cuda.synchronize()
+    rp.reset_launches()
+    t0 = time.time()
+    _, reproj_f, losses_f = prt.retrieval.gd(opf, yf, model,
+                                             num_iterations=20,
+                                             progress_bar=False)
+    torch.cuda.synchronize()
+    gdf_s = time.time() - t0
+    fused_launches = dict(rp.LAUNCHES)
+    hist_f = next(iter(losses_f.values()))
+    btd = opf._fused_btd
+    log(f"[fused main] gd 20 iterations {gdf_s:.3f} s (lazy table build "
+        f"included), loss {hist_f[0]:.6g} -> {hist_f[-1]:.6g}, launches "
+        f"{fused_launches}; backward-only tables {btd.nbytes} B")
+    if not (len(hist_f) == 20 and np.all(np.isfinite(hist_f))
+            and hist_f[-1] < hist_f[0]
+            and bool(torch.isfinite(reproj_f).all())
+            and tuple(reproj_f.shape) == tuple(geom.shape)):
+        raise AssertionError("fused gd loss history not finite and "
+                             "decreasing")
+    if (fused_launches["fused_fwd"] < 21
+            or fused_launches["routed_bwd_gather"] < 20
+            or fused_launches["routed_fwd"] != 0 or btd.row_ptr is not None):
+        raise AssertionError(f"fused main path missed a kernel or kept a "
+                             f"forward table: {fused_launches}")
+
+    opf_off = prt.Operator(grid, geom, config=prt.TraceConfig(
+        mode="fused", routed_dense="off"))
+    torch.cuda.synchronize()
+    rp.reset_launches()
+    _, _, losses_foff = prt.retrieval.gd(opf_off, yf, model,
+                                         num_iterations=5,
+                                         progress_bar=False)
+    torch.cuda.synchronize()
+    foff_launches = dict(rp.LAUNCHES)
+    hist_foff = next(iter(losses_foff.values()))
+    log(f"[fused off] gd 5 iterations, loss {hist_foff[0]:.6g} -> "
+        f"{hist_foff[-1]:.6g}, launches {foff_launches}")
+    if (foff_launches["routed_bwd_scatter"] < 5
+            or foff_launches["fused_fwd"] < 5
+            or not hist_foff[-1] < hist_foff[0]):
+        raise AssertionError(f"fused routed_dense='off' path failed: "
+                             f"{foff_launches}")
+    del opf_off
+
+    # 10. the dynamic view_times configuration at full size -----------------
+    # examples/dynamic_measurements.py:23-28,75-83
+    dgrid = prt.SphericalGrid(shape=(20, 50, 50, 50))
+    nviews = 2 * dgrid.shape.t
+    dgeom = sum(prt.ConeCircGeom(shape=(100, 50),
+                                 pos=(5 * np.cos(th), 5 * np.sin(th), 1),
+                                 fov=(0, 45))
+                for th in np.linspace(0, 2 * np.pi, nviews))
+    times = np.linspace(float(dgrid.t[0]), float(dgrid.t[-1]), nviews)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    opd = prt.Operator(dgrid, dgeom, mode="fused", view_times=times)
+    torch.cuda.synchronize()
+    dsetup_s = time.time() - t0
+    drays = opd._frays
+    if not (opd._engine and drays.w is not None and opd._fused_btd is None):
+        raise AssertionError("view_times operator left the lerp engine")
+    dd = torch.rand(opd._flat_size, generator=gen).to(dev)
+    ddy = torch.randn(drays.n, generator=gen).to(dev)
+    y_dk = fp.fused_fwd(opd.gs, drays, dd)
+    errs_lerp = check_rays(
+        "fused_fwd lerp vs its plain version", y_dk,
+        fp.fused_fwd_ref(opd.gs, drays, dd), 1e-5,
+        1e-5 * float(y_dk.abs().max()), KNIFE_KERNEL)
+    v = dd.reshape(tuple(dgrid.shape)).clone().requires_grad_(True)
+    rp.reset_launches()
+    torch.sum(opd(v).reshape(-1) * ddy).backward()
+    torch.cuda.synchronize()
+    dbtd = opd._fused_btd
+    log(f"[dynamic] R={drays.n}, flat={opd._flat_size}, construction "
+        f"{dsetup_s:.3f} s; first gradient launches {dict(rp.LAUNCHES)}, "
+        f"doubled backward-only tables {dbtd.nbytes} B, nnz {dbtd.nnz}")
+    if (rp.LAUNCHES["fused_fwd"] != 1
+            or rp.LAUNCHES["routed_bwd_gather"] != 1
+            or dbtd.row_ptr is not None):
+        raise AssertionError("view_times gradient missed the lazy backward")
+    gref = rp.routed_bwd_gather_ref(dbtd, ddy)
+    check_close("view_times gradient (routed_bwd_gather on the doubled "
+                "tables)", v.grad.reshape(-1), gref, 1e-5,
+                1e-5 * float(gref.abs().max()))
+    # the fused labels (half-plane bins) and the trace's (atan2) may part
+    # on knife-edge segments, so the adjoint holds to 1e-4 here
+    for name, (yy, gg, dens, cot) in {
+            "flagship": (y_fk, rp.routed_bwd_gather(opf._fused_btd, dyp), d,
+                         dyp),
+            "view_times": (y_dk, v.grad.reshape(-1), dd, ddy)}.items():
+        lhs = float(torch.dot(yy.double(), cot.double()))
+        rhs = float(torch.dot(dens.double(), gg.double()))
+        rel = abs(lhs - rhs) / abs(lhs)
+        log(f"[check] fused adjoint <Ax,y>=<x,A'y> {name}: rel {rel:.3e}")
+        if not rel <= 1e-4:
+            raise AssertionError(f"fused adjoint identity fails ({name})")
+
+    # 11. fused timings -------------------------------------------------------
+    live = fused_live(torch, fp, fgs, frays)
+    f_ms = cuda_ms(torch, lambda: fp.fused_fwd(fgs, frays, d))
+    f_plain = cuda_ms(torch, lambda: fp.fused_fwd_ref(fgs, frays, d), n=5,
+                      warm=1)
+    f_ops = fused_ops(fgs, frays.n, mp, live, lerp=False)
+    f_bytes = fused_bytes(frays.n, V, off0=False, lerp=False)
+    f_op_ms, f_byte_ms = f_ops / F32_FLOPS * 1e3, f_bytes / HBM_BYTES_PER_S * 1e3
+    dlive = fused_live(torch, fp, opd.gs, drays)
+    d_ms = cuda_ms(torch, lambda: fp.fused_fwd(opd.gs, drays, dd))
+    d_plain = cuda_ms(torch, lambda: fp.fused_fwd_ref(opd.gs, drays, dd),
+                      n=5, warm=1)
+    d_op_ms = fused_ops(opd.gs, drays.n, fp.padded_crossings(opd.gs), dlive,
+                        lerp=True) / F32_FLOPS * 1e3
+    d_byte_ms = fused_bytes(drays.n, opd._flat_size, True, True) \
+        / HBM_BYTES_PER_S * 1e3
+    log(f"[kernel] fused_fwd: {f_ms:.4f} ms, plain {f_plain:.4f} ms, bound "
+        f"{max(f_op_ms, f_byte_ms):.4f} ms ({f_ops} f32 ops, {live} live "
+        f"segments, bytes bound {f_byte_ms:.4f} ms), "
+        f"{max(f_op_ms, f_byte_ms) / f_ms:.1%} of the bound; routed_fwd on "
+        f"the same rays {kernels[0]['ms']:.4f} ms")
+    log(f"[kernel] fused_fwd lerp (view_times, {drays.n} rays): {d_ms:.4f} "
+        f"ms, plain {d_plain:.4f} ms, bound {max(d_op_ms, d_byte_ms):.4f} ms "
+        f"({dlive} live segments, bytes bound {d_byte_ms:.4f} ms), max abs "
+        f"err {errs_lerp:.3e}")
+    kernels.append({
+        "name": "fused_fwd", "route": "cuda", "source": FUSED_SOURCE,
+        "replaces": REPLACES["fused_fwd"],
+        "launches": fused_launches["fused_fwd"],
+        "max_abs_err": errs["fused_fwd"], "ms": f_ms, "plain_ms": f_plain,
+        "bound_ms": max(f_op_ms, f_byte_ms),
+        "bound_by": "operations" if f_op_ms >= f_byte_ms else "bytes",
+        "library_ms": None})
+
+    def fstep(v):
+        v = v.detach().requires_grad_(True)
+        (grad,) = torch.autograd.grad(torch.mean((opf(v) - yf) ** 2), v)
+        return (v - 1e-3 * grad).detach()
+
+    fstate = {"v": truth * 0.5}
+
+    def fone():
+        fstate["v"] = fstep(fstate["v"])
+
+    fstep_ms = cuda_ms(torch, fone, n=30, warm=5)
+    log(f"[fused step] {fstep_ms:.4f} ms/step, "
+        f"{R / (fstep_ms * 1e-3):.6g} rays/s (fused_fwd + "
+        f"routed_bwd_gather, {R} rays)")
+
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                one()
-            torch.cuda.synchronize()
-        log(prof.key_averages().table(sort_by="cuda_time_total",
-                                      row_limit=15))
         os.makedirs(profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(profile_dir,
-                                              "step_trace.json"))
+        for label, fn in (("step", one), ("fused_step", fone)):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+            log(f"[profile] {label}, 5 steps")
+            log(prof.key_averages().table(sort_by="cuda_time_total",
+                                          row_limit=15))
+            prof.export_chrome_trace(os.path.join(profile_dir,
+                                                  f"{label}_trace.json"))
 
     log(f"[card] {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -3,8 +3,9 @@
 Raytraces 3D and time-varying 4D density volumes on spherical voxel grids
 through arbitrary detectors, producing differentiable line integrals, with
 a tomographic retrieval stack (models, losses, Adam gradient descent).
-Same public names as ``sph_raytracer_tpu``; the routed projection engine
-runs hand-written CUDA kernels on an NVIDIA H100 (``sm_90a``).  The
+Same public names as ``sph_raytracer_tpu``; the routed and fused
+projection engines run hand-written CUDA kernels on an NVIDIA H100
+(``sm_90a``).  The
 package imports torch and numpy only — never jax, nor the JAX package.
 
 Not ported yet (ROADMAP): ``autotune``, ``solve``, ``plotting`` and the

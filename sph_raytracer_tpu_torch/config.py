@@ -5,16 +5,18 @@
 dtypes are torch dtypes.  Fields fall in three groups:
 
 * **Used:** ``ftype``, ``itype``, ``mode``, ``precompute_block_rays``,
-  ``trace_method`` ('auto'/'sorted'), ``routed_dense`` ('auto'/'bwd'/'off'),
+  ``block_rays`` (the blockwise fused path), ``trace_method``
+  ('auto'/'sorted'), ``routed_dense`` ('auto'/'bwd'/'off'),
   ``routed_banded`` (True), ``routed_fwd_reduce`` ('masks'),
-  ``routed_w_dtype`` ('f32').
+  ``routed_w_dtype`` ('f32'), ``fused_backend``, ``fused_bwd``.
 * **Accepted no-ops** — TPU table-layout or relay knobs with no
   counterpart on the GPU tables (ray-major CSR + its voxel-major
-  transpose): ``interpret``, ``routed_g``, ``routed_sr``, ``routed_kd``,
+  transpose): ``routed_g``, ``routed_sr``, ``routed_kd``,
   ``routed_bands``, ``routed_band_rows``, ``routed_chunk_multiple``,
   ``routed_voxel_order``, ``routed_build``, ``pdevice`` (the trace runs on
-  the operator's device), ``block_rays``, ``fused_backend``,
-  ``fused_bwd``, ``sharded_local_build``.
+  the operator's device), ``sharded_local_build``; and ``interpret``: on
+  the CPU every kernel wrapper runs its plain PyTorch version, as the JAX
+  package's interpret mode runs its Pallas kernels on the CPU.
 * **Not ported yet** — values whose kernel is not in this slice raise
   ``NotImplementedError`` naming the ROADMAP item (see
   :func:`check_supported`); they never silently run another kernel.
@@ -41,14 +43,31 @@ class TraceConfig:
         mode: 'precomputed' caches (linear-index, length) tables and runs
             gather / scatter-add in PyTorch; 'routed' builds GPU CSR tables
             on the device and runs the hand-written CUDA projection kernels
-            (ops/routed_project.py); 'auto' picks 'routed' on a CUDA device
-            and 'precomputed' on the CPU.  'fused' is not ported yet.
+            (ops/routed_project.py); 'fused' keeps no crossing tables: the
+            trace runs inside the ``fused_fwd`` kernel at every forward
+            (ops/fused_project.py); 'auto' picks 'routed' on a CUDA device
+            and 'precomputed' on the CPU.
         precompute_block_rays: rays per block of the crossing trace (bounds
             the peak memory of its dense (block, M) temporaries).
         trace_method: 'sorted' (or 'auto', which means 'sorted' here).
-        routed_dense: backward kernel of the routed engine: 'auto'/'bwd'
-            pick the deterministic voxel-major gather (``routed_bwd_gather``);
-            'off' picks the ray-major atomic scatter (``routed_bwd_scatter``).
+        routed_dense: backward kernel of the routed engine (and of fused
+            mode's routed backward): 'auto'/'bwd' pick the deterministic
+            voxel-major gather (``routed_bwd_gather``); 'off' picks the
+            ray-major atomic scatter (``routed_bwd_scatter``).
+        block_rays: rays per block of the blockwise fused path.
+        fused_backend: fused-mode engine: 'pallas' (the JAX name, kept)
+            is the in-kernel-trace engine (``fused_fwd``; ValueError for a
+            grid outside ``fused_project.supported``); 'xla' is the
+            blockwise re-trace path (``ops.project.project_fused``);
+            'auto' takes the engine when the grid is supported, else the
+            blockwise path.
+        fused_bwd: fused-mode backward with the engine: 'retrace'
+            re-traces blockwise and scatter-adds (no tables); 'routed'
+            builds backward-only routed tables at construction and runs
+            ``routed_dense``'s backward kernel on them; 'auto' is 'routed'
+            built lazily, at the first forward that needs a gradient or
+            the first ``.T`` (a forward-only operator never builds them),
+            and 'retrace' outside the engine.
     """
 
     ftype: torch.dtype = torch.float32
@@ -85,7 +104,6 @@ def default_config() -> TraceConfig:
 
 # (field, value) -> the ROADMAP item that ports its kernel
 _NOT_PORTED = {
-    ("mode", "fused"): "ROADMAP A6 / B4 (fused mode)",
     ("routed_dense", "fwd"): "ROADMAP B5 (dense-slot forward)",
     ("routed_dense", "both"): "ROADMAP B5 (dense-slot forward)",
     ("routed_fwd_reduce", "hist"): "ROADMAP B6 (histogram-reduce forward)",
@@ -101,6 +119,8 @@ _VALID = {
     "routed_fwd_reduce": ("masks", "hist"),
     "routed_w_dtype": ("f32", "bf16"),
     "routed_voxel_order": ("a", "r"),
+    "fused_backend": ("auto", "pallas", "xla"),
+    "fused_bwd": ("auto", "retrace", "routed"),
 }
 
 

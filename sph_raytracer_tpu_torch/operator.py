@@ -13,13 +13,19 @@ device, with two execution modes:
   tables built on the device, and forward / backward run the hand-written
   CUDA kernels inside a ``torch.autograd.Function``
   (:mod:`.ops.routed_project`).
+* ``mode='fused'``: no tables at construction.  Inside the envelope
+  (:func:`.ops.fused_project.supported`) the forward is the ``fused_fwd``
+  kernel, which traces every ray itself; the gradient runs a routed
+  backward kernel on backward-only tables built at the first forward
+  that needs one (``fused_bwd='auto'``), or re-traces blockwise
+  (``'retrace'``).  Outside it (``fused_backend='xla'``, float64) the
+  blockwise path :func:`.ops.project.project_fused` runs.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``device=None`` means ``"cuda"``, and with no card present that raises.
 
-Not ported yet (ROADMAP): ``mode='fused'``, ``debug``/``debug_los``,
-``payload``/``with_payload``, ``regs``, ``plot`` and the on-disk trace
-cache.
+Not ported yet (ROADMAP): ``debug``/``debug_los``, ``payload``/
+``with_payload``, ``regs``, ``plot`` and the on-disk trace cache.
 """
 from __future__ import annotations
 
@@ -31,8 +37,25 @@ import torch
 
 from .config import TraceConfig, check_supported
 from .grid import SphericalGrid
-from .ops.project import backproject_table, precompute_table, project_table
-from .ops.routed_project import BACKWARDS, build_tables, routed_project
+from .ops.fused_project import (
+    fused_fwd,
+    fused_project,
+    fused_routed_project,
+    prep_rays,
+    supported,
+)
+from .ops.project import (
+    backproject_table,
+    precompute_table,
+    project_fused,
+    project_table,
+)
+from .ops.routed_project import (
+    BACKWARDS,
+    build_tables,
+    routed_bwd_gather,
+    routed_project,
+)
 from .ops.trace import GridSpec
 from .viewgeom import ViewGeom
 
@@ -63,7 +86,9 @@ class Operator:
             ``geom.shape[0]``, in ``grid.t`` units; numeric or datetime64);
             each view sees the volume linearly interpolated between its two
             bracketing time bins (the crossing table is doubled with
-            lerp-weighted lengths, so every engine handles it unchanged).
+            lerp-weighted lengths; the fused kernel instead reads both
+            bins per segment, and outside its envelope fused mode falls
+            back to 'precomputed' with a warning).
         device: torch device of the tables and the computation; ``None``
             means ``"cuda"``.
 
@@ -175,23 +200,90 @@ class Operator:
                     "falling back to mode='precomputed' for "
                     f"ftype={config.ftype}")
             mode = "precomputed"
+        self._engine = mode == "fused" and self._fused_engine()
+        if mode == "fused" and self._time_w is not None and not self._engine:
+            # the lerp runs inside the fused kernel (two time bins per
+            # segment); the blockwise path has no doubled-table analog
+            warnings.warn(
+                "fused mode supports view_times only in the in-kernel "
+                "fused engine (unavailable here: fused_backend='xla' or "
+                "outside the envelope); falling back to mode='precomputed'")
+            mode = "precomputed"
         self._mode = mode
+        self._bwd = BACKWARDS[config.routed_dense]
+        # fused_bwd='auto': the routed backward whenever the fused kernel
+        # runs, built lazily so a forward-only operator keeps no tables
+        self._fused_bwd = config.fused_bwd
+        self._fused_bwd_lazy = False
+        if config.fused_bwd == "auto":
+            self._fused_bwd = "routed" if self._engine else "retrace"
+            self._fused_bwd_lazy = self._engine
 
-        lin, lens, _, _ = precompute_table(
-            self.gs, np.asarray(geom.ray_starts, dtype=np.float64),
-            np.asarray(geom.rays, dtype=np.float64),
-            block=min(config.precompute_block_rays,
-                      _round_block(self._nrays)),
-            itype=config.itype, device=self.device)
-        lin, lens = self._apply_offsets(lin, lens)
-        self.lin = self.lens = self._tables = None
-        if mode == "routed":
-            self._bwd = BACKWARDS[config.routed_dense]
+        self.lin = self.lens = self._tables = self._fused_btd = None
+        self._tables_memo = None
+        if mode == "fused":
+            xs = np.asarray(geom.ray_starts, dtype=np.float64)
+            rays = np.asarray(geom.rays, dtype=np.float64)
+            if self._engine:
+                self._frays = prep_rays(xs, rays, self._view_offsets,
+                                        self._time_off2, self._time_w,
+                                        device=self.device)
+                if self._fused_bwd == "routed" and not self._fused_bwd_lazy:
+                    self._ensure_fused_btd()
+            else:
+                self._xs = torch.as_tensor(xs, dtype=config.ftype,
+                                           device=self.device)
+                self._rays = torch.as_tensor(rays, dtype=config.ftype,
+                                             device=self.device)
+                self._off = (None if self._view_offsets is None else
+                             torch.as_tensor(self._view_offsets,
+                                             device=self.device))
+        elif mode == "routed":
+            lin, lens = self._trace()
             self._tables = build_tables(
                 lin, lens, self._flat_size,
-                transpose=self._bwd is BACKWARDS["auto"])
+                transpose=self._bwd is routed_bwd_gather)
         else:
-            self.lin, self.lens = lin, lens
+            self.lin, self.lens = self._trace()
+
+    # ------------------------------------------------------------------
+    def _trace(self):
+        """The crossing tables ``(lin, lens)`` of every ray, time offsets
+        applied, on the operator's device."""
+        lin, lens, _, _ = precompute_table(
+            self.gs, np.asarray(self.geom.ray_starts, dtype=np.float64),
+            np.asarray(self.geom.rays, dtype=np.float64),
+            block=min(self.config.precompute_block_rays,
+                      _round_block(self._nrays)),
+            itype=self.config.itype, device=self.device)
+        return self._apply_offsets(lin, lens)
+
+    def _fused_engine(self) -> bool:
+        """Whether fused mode runs the in-kernel-trace engine
+        (``fused_fwd``); ``fused_backend='pallas'`` outside its envelope
+        raises."""
+        be = self.config.fused_backend
+        if be == "xla":
+            return False
+        ok = supported(self.gs, self._flat_size)
+        if be == "pallas" and not ok:
+            raise ValueError(
+                "fused_backend='pallas' but this grid is outside the "
+                "in-kernel fused engine's envelope (see "
+                "ops/fused_project.supported)")
+        return ok
+
+    def _ensure_fused_btd(self):
+        """The fused mode's backward-only routed tables, built at first
+        use: only what ``routed_dense``'s backward reads (the transpose
+        for the gather, the ray-major CSR for the scatter); the forward
+        CSR is never kept."""
+        if self._fused_btd is None:
+            lin, lens = self._trace()
+            self._fused_btd = build_tables(
+                lin, lens, self._flat_size,
+                transpose=self._bwd is routed_bwd_gather, bwd_only=True)
+        return self._fused_btd
 
     # ------------------------------------------------------------------
     def _apply_offsets(self, lin, lens):
@@ -222,8 +314,8 @@ class Operator:
         Args:
             density: (*channels, *grid.shape) volume (tensor or array,
                 moved to the operator's device); dynamic grids take
-                (*channels, T, N_r, N_e, N_a).  Routed mode computes in
-                float32.
+                (*channels, T, N_r, N_e, N_a).  Routed mode and the fused
+                kernel compute in float32.
 
         Returns:
             (*channels, *geom.shape) line integrals.
@@ -235,13 +327,37 @@ class Operator:
                              f"not end with grid shape {gshape}")
         chan = density.shape[: -len(gshape)]
         flat = density.reshape(*chan, self._flat_size)
-        if self._tables is not None:
+        if self._mode == "fused":
+            out = self._fused(flat)
+        elif self._tables is not None:
             flat2 = flat.reshape(-1, self._flat_size).to(torch.float32)
             out = torch.stack([routed_project(f, self._tables, self._bwd)
                                for f in flat2])
         else:
             out = project_table(flat, self.lin, self.lens)
         return out.reshape(*chan, *self._rshape)
+
+    def _fused(self, flat):
+        if not self._engine:
+            return project_fused(
+                self.gs, flat, self._xs, self._rays, view_offsets=self._off,
+                block=min(self.config.block_rays, _round_block(self._nrays)),
+                itype=self.config.itype).reshape(*flat.shape[:-1], -1)
+        flat2 = flat.reshape(-1, self._flat_size).to(torch.float32)
+        out = torch.stack([self._fused_one(f) for f in flat2])
+        return out.reshape(*flat.shape[:-1], -1)
+
+    def _fused_one(self, f):
+        """The fused kernel's forward of one flat f32 volume, with the
+        backward that ``fused_bwd`` resolved to."""
+        if self._fused_bwd == "retrace":
+            return fused_project(f, self.gs, self._frays, self.config.itype)
+        if torch.is_grad_enabled() and f.requires_grad:
+            self._ensure_fused_btd()
+        if self._fused_btd is None:
+            return fused_fwd(self.gs, self._frays, f)
+        return fused_routed_project(f, self.gs, self._frays,
+                                    self._fused_btd, self._bwd)
 
     def T(self, line_integrations):
         """Adjoint backprojection (4D volumes and channel dims supported).
@@ -255,13 +371,28 @@ class Operator:
         y = torch.as_tensor(line_integrations, device=self.device)
         chan = y.shape[: y.dim() - len(self._rshape)]
         yf = y.reshape(*chan, self._nrays)
-        if self._tables is not None:
+        tables = self._tables
+        if self._engine and self._fused_bwd == "routed":
+            # the routed backward's tables, built here at first use
+            tables = self._ensure_fused_btd()
+        if tables is not None:
             yf2 = yf.reshape(-1, self._nrays).to(torch.float32)
-            out = torch.stack([self._bwd(self._tables, v) for v in yf2])
+            out = torch.stack([self._bwd(tables, v) for v in yf2])
         else:
-            out = backproject_table(yf, self.lin, self.lens,
+            lin, lens = self._lin_lens()
+            out = backproject_table(yf, lin, lens,
                                     volume_size=self._flat_size)
         return out.reshape(*chan, *self.grid.shape)
+
+    def _lin_lens(self):
+        """``(lin, lens)`` for the table adjoint; fused mode traces them
+        at its first ``.T`` and keeps them (re-tracing per call would cost
+        the whole trace every time)."""
+        if self.lin is not None:
+            return self.lin, self.lens
+        if self._tables_memo is None:
+            self._tables_memo = self._trace()
+        return self._tables_memo
 
     # ------------------------------------------------------------------
     def __repr__(self):

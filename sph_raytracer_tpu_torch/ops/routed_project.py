@@ -13,6 +13,11 @@ traced ``(lin, lens)``:
   (V+1) / ``ray`` / ``valT``, made by a **stable** sort of ``col`` so each
   voxel row lists its rays in ascending order (a fixed summation order).
 
+A backward-only form (``bwd_only=True``, the counterpart of the JAX
+package's ``build_banded_device(..., bwd_only=True)``) keeps only what one
+backward reads: the transpose for the gather, the ray-major CSR for the
+scatter.  Fused mode trains on such tables; its forward needs none.
+
 Kernels (``csrc/routed_project.cu``), each beside its plain PyTorch
 version and a launch counter in :data:`LAUNCHES`:
 
@@ -27,19 +32,15 @@ routed_bwd_scatter   ``_bwd_banded_pallas`` (B3)     routed_bwd_scatter_ref
 A wrapper runs the plain version only because the tensor it was given
 lies on the CPU; for a CUDA tensor it launches the kernel or raises.  The
 library is built from the sources in this package with ``nvcc`` at first
-use (:func:`load_library`); there is no fallback.
+use (:func:`load_library`, in :mod:`._cuda`); there is no fallback.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+
+from ._cuda import LAUNCHES, launch, load_library, reset_launches
 
 __all__ = [
     "RoutedTables",
@@ -57,22 +58,6 @@ __all__ = [
     "load_library",
 ]
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = (os.path.join(_PKG, "csrc", "routed_project.cu"),)
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-# kernel launches per wrapper; each wrapper adds one where it launches its
-# kernel and nowhere else
-LAUNCHES = {"routed_fwd": 0, "routed_bwd_gather": 0, "routed_bwd_scatter": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
 # ---------------------------------------------------------------------------
 # tables
 # ---------------------------------------------------------------------------
@@ -80,20 +65,25 @@ def reset_launches() -> None:
 class RoutedTables(NamedTuple):
     """GPU-native CSR tables of one operator (see module docstring).
     ``vox_ptr``/``ray``/``valT`` are None when the transpose was not
-    built (the scatter backward does not need it)."""
+    built (the scatter backward does not need it); ``row_ptr``/``col``/
+    ``val`` are None in backward-only tables for the gather."""
 
-    row_ptr: torch.Tensor
-    col: torch.Tensor
-    val: torch.Tensor
-    vox_ptr: torch.Tensor
-    ray: torch.Tensor
-    valT: torch.Tensor
+    row_ptr: Optional[torch.Tensor]
+    col: Optional[torch.Tensor]
+    val: Optional[torch.Tensor]
+    vox_ptr: Optional[torch.Tensor]
+    ray: Optional[torch.Tensor]
+    valT: Optional[torch.Tensor]
     n_rays: int
     n_vox: int
 
     @property
     def nnz(self) -> int:
-        return int(self.col.shape[0])
+        return int((self.col if self.col is not None else self.ray).shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return (self.col if self.col is not None else self.ray).device
 
     @property
     def nbytes(self) -> int:
@@ -101,10 +91,13 @@ class RoutedTables(NamedTuple):
                    if t is not None)
 
 
-def build_tables(lin, lens, n_vox: int, transpose: bool = True
-                 ) -> RoutedTables:
+def build_tables(lin, lens, n_vox: int, transpose: bool = True,
+                 bwd_only: bool = False) -> RoutedTables:
     """Build the CSR tables from a traced (lin (R, M), lens (R, M)) pair on
-    the tables' device.  Zero-length slots are dropped."""
+    the tables' device.  Zero-length slots are dropped.
+
+    ``transpose`` adds the voxel-major transpose; ``bwd_only`` then drops
+    the ray-major CSR, which only the forward and the scatter read."""
     R = lin.shape[0]
     live = lens != 0
     counts = live.sum(dim=1)
@@ -126,6 +119,8 @@ def build_tables(lin, lens, n_vox: int, transpose: bool = True
         ray, valT = rows[order], val[order]
         vox_ptr = torch.zeros(n_vox + 1, dtype=torch.int32, device=dev)
         vox_ptr[1:] = torch.cumsum(torch.bincount(col, minlength=n_vox), 0)
+        if bwd_only:
+            row_ptr = col = val = None
     return RoutedTables(row_ptr, col, val, vox_ptr, ray, valT, R, n_vox)
 
 
@@ -161,66 +156,6 @@ def routed_bwd_scatter_ref(t: RoutedTables, dy):
     return dD.index_add_(0, t.col.long(), prod)
 
 
-# ---------------------------------------------------------------------------
-# build + bind
-# ---------------------------------------------------------------------------
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the routed "
-                       "CUDA kernels are built from source at first use")
-
-
-@functools.lru_cache(maxsize=None)
-def load_library():
-    """Build (once per source hash) and load the kernels' shared library.
-
-    Returns ``(lib, build_log)``; ``build_log`` holds nvcc's output
-    (``-Xptxas -v`` register and spill lines) when this call built it.
-    Raises with the compiler's output when the build fails."""
-    h = hashlib.sha256()
-    for src in SOURCES:
-        with open(src, "rb") as fh:
-            h.update(fh.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    so = os.path.join(BUILD_DIR, f"routed_project_{h.hexdigest()[:16]}.so")
-    log = ""
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES],
-                              capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for name, argtypes in (
-            ("routed_fwd", [p, p, p, p, p, i, p]),
-            ("routed_bwd_gather", [p, p, p, p, p, i, p]),
-            ("routed_bwd_scatter", [p, p, p, p, p, i, i, p])):
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    lib.routed_error_string.argtypes = [ctypes.c_int]
-    lib.routed_error_string.restype = ctypes.c_char_p
-    return lib, log
-
-
-def _launch(name, tensors, ints):
-    lib, _ = load_library()
-    stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
-    rc = getattr(lib, name)(*(t.data_ptr() for t in tensors), *ints, stream)
-    if rc != 0:
-        msg = lib.routed_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
-    LAUNCHES[name] += 1
-
-
 def _check(x, n, what, tables):
     """Validate a kernel input: 1-D float32 of length n on the tables'
     CUDA device."""
@@ -230,8 +165,8 @@ def _check(x, n, what, tables):
     if x.dtype != torch.float32 or x.shape != (n,):
         raise ValueError(f"{what} must be float32 of shape ({n},), got "
                          f"{x.dtype} {tuple(x.shape)}")
-    if tables.col.device != x.device:
-        raise ValueError(f"tables on {tables.col.device}, {what} on "
+    if tables.device != x.device:
+        raise ValueError(f"tables on {tables.device}, {what} on "
                          f"{x.device}")
     return x.contiguous()
 
@@ -242,11 +177,14 @@ def _check(x, n, what, tables):
 
 def routed_fwd(t: RoutedTables, d):
     """y (R,) = A·d for a flat (V,) density; kernel ``routed_fwd``."""
+    if t.row_ptr is None:
+        raise ValueError("routed_fwd needs the ray-major CSR (these are "
+                         "backward-only tables for the gather)")
     if d.device.type == "cpu":
         return routed_fwd_ref(t, d)
     d = _check(d, t.n_vox, "density", t)
     y = torch.empty(t.n_rays, dtype=torch.float32, device=d.device)
-    _launch("routed_fwd", (t.row_ptr, t.col, t.val, d, y), (t.n_rays,))
+    launch("routed_fwd", (t.row_ptr, t.col, t.val, d, y), (t.n_rays,))
     return y
 
 
@@ -259,19 +197,21 @@ def routed_bwd_gather(t: RoutedTables, dy):
         return routed_bwd_gather_ref(t, dy)
     dy = _check(dy, t.n_rays, "dy", t)
     dD = torch.empty(t.n_vox, dtype=torch.float32, device=dy.device)
-    _launch("routed_bwd_gather", (t.vox_ptr, t.ray, t.valT, dy, dD),
-            (t.n_vox,))
+    launch("routed_bwd_gather", (t.vox_ptr, t.ray, t.valT, dy, dD),
+           (t.n_vox,))
     return dD
 
 
 def routed_bwd_scatter(t: RoutedTables, dy):
     """dD (V,) = Aᵀ·dy by atomics; kernel ``routed_bwd_scatter``."""
+    if t.row_ptr is None:
+        raise ValueError("routed_bwd_scatter needs the ray-major CSR")
     if dy.device.type == "cpu":
         return routed_bwd_scatter_ref(t, dy)
     dy = _check(dy, t.n_rays, "dy", t)
     dD = torch.empty(t.n_vox, dtype=torch.float32, device=dy.device)
-    _launch("routed_bwd_scatter", (t.row_ptr, t.col, t.val, dy, dD),
-            (t.n_rays, t.n_vox))
+    launch("routed_bwd_scatter", (t.row_ptr, t.col, t.val, dy, dD),
+           (t.n_rays, t.n_vox))
     return dD
 
 
