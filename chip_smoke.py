@@ -41,11 +41,26 @@ Phases (any failure raises and exits non-zero):
    kernel against its plain version and one gradient through the lazy
    backward on the doubled tables;
 11. fused timings: ``fused_fwd`` beside its plain version and its bound
-   (operations), the fused training step.
+   (operations), the fused training step;
+12. the routed engine's variants on the flagship, one ``Operator`` each
+   (its setup seconds and table bytes printed): ``routed_dense='both'``
+   (``routed_fwd_dense`` + ``routed_bwd_gather`` on the transpose alone),
+   ``'fwd'`` (``routed_fwd_dense`` + ``routed_bwd_scatter``),
+   ``routed_fwd_reduce='hist'`` (``routed_fwd_hist`` + the gather) and
+   ``routed_banded=False`` (``routed_fwd_window`` + ``routed_bwd_window`` on
+   the window chunk table).  From those operators' tables: each new kernel
+   against its plain version, the adjoint identity of each pair, each
+   variant's image against ``routed_fwd``'s; then ``retrieval.gd`` for 5
+   iterations through each, counters reset just before and read just
+   after;
+13. variant timings: each config's training step, each new kernel beside
+   its plain version, its bound and one PyTorch call (``torch.mv`` on the
+   CSR of A, or of Aᵀ for ``routed_bwd_window``).
 
 Before the last line: the card's name and power limit, then the
-``{"kernels": [...]}`` line; the last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+``{"kernels": [...]}`` line (8 kernels); the last line is
+``{"ok": true, "device": {...}}``.  The run's wall seconds are printed
+before them.  Imports nothing of JAX.
 """
 import json
 import os
@@ -63,9 +78,14 @@ REPLACES = {
     "routed_bwd_gather": "sph_raytracer_tpu/ops/routed_project.py:905",
     "routed_bwd_scatter": "sph_raytracer_tpu/ops/routed_project.py:1142",
     "fused_fwd": "sph_raytracer_tpu/ops/fused_pallas.py:138",
+    "routed_fwd_dense": "sph_raytracer_tpu/ops/routed_project.py:820",
+    "routed_fwd_hist": "sph_raytracer_tpu/ops/routed_project.py:670",
+    "routed_fwd_window": "sph_raytracer_tpu/ops/routed_project.py:200",
+    "routed_bwd_window": "sph_raytracer_tpu/ops/routed_project.py:312",
 }
 SOURCE = "sph_raytracer_tpu_torch/csrc/routed_project.cu"
 FUSED_SOURCE = "sph_raytracer_tpu_torch/csrc/fused_project.cu"
+VARIANTS_SOURCE = "sph_raytracer_tpu_torch/csrc/routed_variants.cu"
 # kernel vs plain version, and fused vs routed image (two f32 traces): a
 # ray whose segment midpoint lies on a boundary may label either
 # neighbour (fused_pallas.py:32-38); at most this share of rays may
@@ -95,11 +115,12 @@ def cuda_ms(torch, fn, n=20, warm=3):
 
 
 def check_close(name, got, want, rtol, atol):
-    err = float((got.double() - want.double()).abs().max())
-    ok = bool(((got.double() - want.double()).abs()
-               <= atol + rtol * want.double().abs()).all())
-    log(f"[check] {name}: max_abs_err={err:.3e} (rtol={rtol}, "
-        f"atol={atol:.3e}) {'ok' if ok else 'FAIL'}")
+    diff = (got.double() - want.double()).abs()
+    err = float(diff.max())
+    n_bad = int((diff > atol + rtol * want.double().abs()).sum())
+    ok = n_bad == 0
+    log(f"[check] {name}: max_abs_err={err:.3e}, {n_bad} of {got.numel()} "
+        f"outside (rtol={rtol}, atol={atol:.3e}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its reference")
     return err
@@ -169,9 +190,10 @@ def main(argv):
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="profile 5 routed and 5 fused training steps; "
-                    "write the traces to DIR")
+                    help="profile 5 training steps of each routed config "
+                    "and of fused mode; write the traces to DIR")
     profile_dir = ap.parse_args(argv).profile
+    t_start = time.time()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -325,16 +347,20 @@ def main(argv):
     del op_off
 
     # 7. timings -------------------------------------------------------------
-    def step(v):
-        v = v.detach().requires_grad_(True)
-        (grad,) = torch.autograd.grad(torch.mean((op(v) - y) ** 2), v)
-        return (v - 1e-3 * grad).detach()
+    def make_step(o, target):
+        """One training step of operator ``o`` (forward → MSE → grad →
+        update), its state carried from call to call."""
+        state = {"v": truth * 0.5}
 
-    state = {"v": truth * 0.5}
+        def one():
+            v = state["v"].detach().requires_grad_(True)
+            (grad,) = torch.autograd.grad(
+                torch.mean((o(v) - target) ** 2), v)
+            state["v"] = (v - 1e-3 * grad).detach()
 
-    def one():
-        state["v"] = step(state["v"])
+        return one
 
+    one = make_step(op, y)
     step_ms = cuda_ms(torch, one, n=30, warm=5)
     log(f"[step] {step_ms:.4f} ms/step, {R / (step_ms * 1e-3):.6g} rays/s "
         f"(fwd+bwd, {R} rays), peak memory "
@@ -554,26 +580,159 @@ def main(argv):
         "bound_by": "operations" if f_op_ms >= f_byte_ms else "bytes",
         "library_ms": None})
 
-    def fstep(v):
-        v = v.detach().requires_grad_(True)
-        (grad,) = torch.autograd.grad(torch.mean((opf(v) - yf) ** 2), v)
-        return (v - 1e-3 * grad).detach()
-
-    fstate = {"v": truth * 0.5}
-
-    def fone():
-        fstate["v"] = fstep(fstate["v"])
-
+    fone = make_step(opf, yf)
     fstep_ms = cuda_ms(torch, fone, n=30, warm=5)
     log(f"[fused step] {fstep_ms:.4f} ms/step, "
         f"{R / (fstep_ms * 1e-3):.6g} rays/s (fused_fwd + "
         f"routed_bwd_gather, {R} rays)")
 
+    # 12. the routed engine's variants on the flagship ----------------------
+    variants = {  # name -> (TraceConfig fields, forward, backward)
+        "both": (dict(routed_dense="both"), rp.routed_fwd_dense,
+                 rp.routed_bwd_gather),
+        "fwd": (dict(routed_dense="fwd"), rp.routed_fwd_dense,
+                rp.routed_bwd_scatter),
+        "hist": (dict(routed_fwd_reduce="hist"), rp.routed_fwd_hist,
+                 rp.routed_bwd_gather),
+        "window": (dict(routed_banded=False), rp.routed_fwd_window,
+                   rp.routed_bwd_window),
+    }
+    vops = {}
+    for name, (cfg, fwd, bwd) in variants.items():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        vops[name] = prt.Operator(grid, geom, config=prt.TraceConfig(**cfg))
+        torch.cuda.synchronize()
+        vt = vops[name]._tables
+        log(f"[variant {name}] setup {time.time() - t0:.3f} s, "
+            f"{fwd.__name__} + {bwd.__name__}, nnz {vt.nnz}, table bytes "
+            f"{vt.nbytes}")
+        if (vops[name]._fwd, vops[name]._bwd) != (fwd, bwd):
+            raise AssertionError(f"{name}: resolved to another kernel pair")
+    t_both, t_fwd = vops["both"]._tables, vops["fwd"]._tables
+    t_hist, t_win = vops["hist"]._tables, vops["window"]._tables
+    if t_both.row_ptr is not None:
+        raise AssertionError("routed_dense='both' kept the ray-major CSR")
+    # crossings per CTA of each window kernel (its load balance)
+    per_tile = (t_win.cptr[t_win.tile_ptr[1:].long()]
+                - t_win.cptr[t_win.tile_ptr[:-1].long()]).double()
+    cs = torch.cumsum(torch.diff(t_win.cptr)[t_win.bwd_order.long()], 0)
+    cs = torch.cat([cs.new_zeros(1), cs])
+    per_win = (cs[t_win.win_ptr[1:].long()]
+               - cs[t_win.win_ptr[:-1].long()]).double()
+    log(f"[variant window] {t_win.n_tiles} tiles of {t_win.G} rays, "
+        f"{t_win.n_win} windows of {t_win.W} voxels, "
+        f"{len(t_win.ckey)} non-empty chunks; crossings per tile max "
+        f"{int(per_tile.max())} mean {float(per_tile.mean()):.1f}, per "
+        f"window max {int(per_win.max())} mean {float(per_win.mean()):.1f}")
+    # shared or global atomics sum in a run-to-run order: rtol 1e-4
+    new_checks = {
+        "routed_fwd_dense": (t_both, d, rp.routed_fwd_dense_ref),
+        "routed_fwd_hist": (t_hist, d, rp.routed_fwd_hist_ref),
+        "routed_fwd_window": (t_win, d, rp.routed_fwd_window_ref),
+        "routed_bwd_window": (t_win, dy, rp.routed_bwd_window_ref),
+    }
+    for name, (t, x, ref) in new_checks.items():
+        want = ref(t, x)
+        errs[name] = check_close(name, getattr(rp, name)(t, x), want, 1e-4,
+                                 1e-5 * float(want.abs().max()))
+    for label, t, fwd, bwd in (
+            ("routed_fwd_dense/routed_bwd_gather", t_both,
+             rp.routed_fwd_dense, rp.routed_bwd_gather),
+            ("routed_fwd_dense/routed_bwd_scatter", t_fwd,
+             rp.routed_fwd_dense, rp.routed_bwd_scatter),
+            ("routed_fwd_hist/routed_bwd_gather", t_hist,
+             rp.routed_fwd_hist, rp.routed_bwd_gather),
+            ("routed_fwd_window/routed_bwd_window", t_win,
+             rp.routed_fwd_window, rp.routed_bwd_window)):
+        lhs = float(torch.dot(fwd(t, d).double(), dyp.double()))
+        rhs = float(torch.dot(d.double(), bwd(t, dyp).double()))
+        rel = abs(lhs - rhs) / abs(lhs)
+        log(f"[check] adjoint <Ax,y>=<x,A'y> {label}: rel {rel:.3e}")
+        if not rel <= 1e-5:
+            raise AssertionError(f"adjoint identity fails for {label}")
+    y_routed = rp.routed_fwd(tab, d)
+    for name in ("routed_fwd_dense", "routed_fwd_hist", "routed_fwd_window"):
+        t = new_checks[name][0]
+        check_close(f"{name} image vs routed_fwd", getattr(rp, name)(t, d),
+                    y_routed, 1e-4, 1e-6 * float(y_routed.abs().max()))
+    torch.cuda.synchronize()
+
+    var_launches = {}
+    for name, (_, fwd, bwd) in variants.items():
+        torch.cuda.synchronize()
+        rp.reset_launches()
+        t0 = time.time()
+        _, reproj_v, losses_v = prt.retrieval.gd(
+            vops[name], y, model, num_iterations=5, progress_bar=False)
+        torch.cuda.synchronize()
+        var_launches[name] = lv = dict(rp.LAUNCHES)
+        hist_v = next(iter(losses_v.values()))
+        log(f"[variant {name} main] gd 5 iterations {time.time() - t0:.3f} "
+            f"s, loss {hist_v[0]:.6g} -> {hist_v[-1]:.6g}, launches "
+            f"{ {k: n for k, n in lv.items() if n} }")
+        if not (len(hist_v) == 5 and np.all(np.isfinite(hist_v))
+                and hist_v[-1] < hist_v[0]
+                and bool(torch.isfinite(reproj_v).all())
+                and tuple(reproj_v.shape) == tuple(geom.shape)):
+            raise AssertionError(f"{name}: gd loss history not finite and "
+                                 "decreasing")
+        if (lv[fwd.__name__] < 5 or lv[bwd.__name__] < 5
+                or lv["routed_fwd"] != 0):
+            raise AssertionError(f"{name} main path missed a kernel: {lv}")
+
+    # 13. variant timings ----------------------------------------------------
+    vsteps = {}
+    for name, vop in vops.items():
+        vsteps[name] = make_step(vop, y)
+        v_ms = cuda_ms(torch, vsteps[name], n=30, warm=5)
+        log(f"[variant {name} step] {v_ms:.4f} ms/step, "
+            f"{R / (v_ms * 1e-3):.6g} rays/s (fwd+bwd, {R} rays); "
+            f"routed_dense='auto' step {step_ms:.4f} ms")
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    win_common = nbytes(t_win.ckey, t_win.cptr, t_win.loc, t_win.val)
+    var_bytes = {
+        "routed_fwd_dense": nbytes(t_both.vox_ptr, t_both.ray, t_both.valT)
+        + 4 * V + 4 * R,
+        "routed_fwd_hist": nbytes(t_hist.row_ptr, t_hist.col, t_hist.val)
+        + 4 * V + 4 * R,
+        "routed_fwd_window": nbytes(t_win.tile_ptr) + win_common
+        + 4 * V + 4 * R,
+        "routed_bwd_window": nbytes(t_win.win_ptr, t_win.bwd_order)
+        + win_common + 4 * R + 4 * V,
+    }
+    var_launch = {"routed_fwd_dense": var_launches["both"],
+                  "routed_fwd_hist": var_launches["hist"],
+                  "routed_fwd_window": var_launches["window"],
+                  "routed_bwd_window": var_launches["window"]}
+    for name, (t, x, ref) in new_checks.items():
+        kern = getattr(rp, name)
+        ms = cuda_ms(torch, lambda: kern(t, x))
+        plain_ms = cuda_ms(torch, lambda: ref(t, x))
+        mat = AT if name == "routed_bwd_window" else A
+        lib_ms = cuda_ms(torch, lambda: torch.mv(mat, x))
+        byte_ms = var_bytes[name] / HBM_BYTES_PER_S * 1e3
+        op_ms = 2 * t.nnz / F32_FLOPS * 1e3
+        kernels.append({
+            "name": name, "route": "cuda", "source": VARIANTS_SOURCE,
+            "replaces": REPLACES[name], "launches": var_launch[name][name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "library_ms": lib_ms})
+        log(f"[kernel] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {lib_ms:.4f} ms, bound {max(byte_ms, op_ms):.4f} ms "
+            f"({var_bytes[name]} bytes), {byte_ms / ms:.1%} of the bound")
+
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile
 
         os.makedirs(profile_dir, exist_ok=True)
-        for label, fn in (("step", one), ("fused_step", fone)):
+        for label, fn in (("step", one), ("fused_step", fone),
+                          *((f"{n}_step", f) for n, f in vsteps.items())):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 for _ in range(5):
@@ -585,6 +744,7 @@ def main(argv):
             prof.export_chrome_trace(os.path.join(profile_dir,
                                                   f"{label}_trace.json"))
 
+    log(f"[run] wall {time.time() - t_start:.1f} s")
     log(f"[card] {smi}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,20 +6,42 @@ dtypes are torch dtypes.  Fields fall in three groups:
 
 * **Used:** ``ftype``, ``itype``, ``mode``, ``precompute_block_rays``,
   ``block_rays`` (the blockwise fused path), ``trace_method``
-  ('auto'/'sorted'), ``routed_dense`` ('auto'/'bwd'/'off'),
-  ``routed_banded`` (True), ``routed_fwd_reduce`` ('masks'),
-  ``routed_w_dtype`` ('f32'), ``fused_backend``, ``fused_bwd``.
+  ('auto'/'sorted'), ``routed_dense``, ``routed_banded``,
+  ``routed_fwd_reduce``, ``routed_w_dtype`` ('f32'), ``fused_backend``,
+  ``fused_bwd``.  In routed mode the last three routed fields pick a
+  (forward, backward) pair of kernels (``ops.routed_project.resolve``):
+
+  ====================================== ===================== ===================
+  config                                 forward               backward / ``.T``
+  ====================================== ===================== ===================
+  ``routed_dense`` 'auto' / 'bwd'        ``routed_fwd``        ``routed_bwd_gather``
+  ``routed_dense`` 'off'                 ``routed_fwd``        ``routed_bwd_scatter``
+  ``routed_dense`` 'fwd'                 ``routed_fwd_dense``  ``routed_bwd_scatter``
+  ``routed_dense`` 'both'                ``routed_fwd_dense``  ``routed_bwd_gather``
+  ``routed_fwd_reduce='hist'``           ``routed_fwd_hist``   by ``routed_dense``
+  ``routed_banded=False``                ``routed_fwd_window`` ``routed_bwd_window``
+  ====================================== ===================== ===================
+
+  'hist' with ``routed_dense`` 'fwd'/'both' gives way to the dense
+  forward with a ``UserWarning``, as in the JAX package.  Fused mode reads
+  only ``routed_dense``, for its backward ('auto'/'bwd'/'both' gather,
+  'off'/'fwd' scatter).
 * **Accepted no-ops** — TPU table-layout or relay knobs with no
-  counterpart on the GPU tables (ray-major CSR + its voxel-major
-  transpose): ``routed_g``, ``routed_sr``, ``routed_kd``,
-  ``routed_bands``, ``routed_band_rows``, ``routed_chunk_multiple``,
-  ``routed_voxel_order``, ``routed_build``, ``pdevice`` (the trace runs on
-  the operator's device), ``sharded_local_build``; and ``interpret``: on
-  the CPU every kernel wrapper runs its plain PyTorch version, as the JAX
-  package's interpret mode runs its Pallas kernels on the CPU.
-* **Not ported yet** — values whose kernel is not in this slice raise
-  ``NotImplementedError`` naming the ROADMAP item (see
-  :func:`check_supported`); they never silently run another kernel.
+  counterpart on the GPU tables (CSR, its voxel-major transpose, the
+  window chunk table, whose tile and window sizes are the port's own
+  constants chosen for the card): ``routed_g``, ``routed_sr``,
+  ``routed_kd``, ``routed_bands``, ``routed_band_rows`` (beyond the
+  'hist' check below), ``routed_chunk_multiple``, ``routed_voxel_order``,
+  ``routed_build``, ``pdevice`` (the trace runs on the operator's device),
+  ``sharded_local_build``; and ``interpret``: on the CPU every kernel
+  wrapper runs its plain PyTorch version, as the JAX package's interpret
+  mode runs its Pallas kernels on the CPU.  The TPU's VMEM-envelope clamps
+  and the dense-slot rep-skew gate of ``routed_dense`` have no counterpart
+  on the card either: a forced value always runs its kernel.
+* **Not ported yet** — ``routed_w_dtype='bf16'`` and
+  ``trace_method='ranked'`` raise ``NotImplementedError`` naming the
+  ROADMAP item (see :func:`check_supported`); they never silently run
+  another kernel.
 """
 from __future__ import annotations
 
@@ -50,10 +72,18 @@ class TraceConfig:
         precompute_block_rays: rays per block of the crossing trace (bounds
             the peak memory of its dense (block, M) temporaries).
         trace_method: 'sorted' (or 'auto', which means 'sorted' here).
-        routed_dense: backward kernel of the routed engine (and of fused
-            mode's routed backward): 'auto'/'bwd' pick the deterministic
-            voxel-major gather (``routed_bwd_gather``); 'off' picks the
-            ray-major atomic scatter (``routed_bwd_scatter``).
+        routed_dense: dense-slot choice of the routed engine (module
+            docstring's table): the gather backward (``routed_bwd_gather``,
+            deterministic) for 'auto'/'bwd'/'both', the atomic scatter
+            (``routed_bwd_scatter``) for 'off'/'fwd'; the voxel-major
+            forward (``routed_fwd_dense``) for 'fwd'/'both'.  'both' keeps
+            only the voxel-major transpose.
+        routed_banded: False runs the window-routed pair
+            (``routed_fwd_window`` / ``routed_bwd_window``) on one chunk
+            table of (ray tile, voxel window) chunks.
+        routed_fwd_reduce: 'hist' runs the ray-tile reduce forward
+            (``routed_fwd_hist``); needs ``routed_band_rows=8``, as in the
+            JAX package.
         block_rays: rays per block of the blockwise fused path.
         fused_backend: fused-mode engine: 'pallas' (the JAX name, kept)
             is the in-kernel-trace engine (``fused_fwd``; ValueError for a
@@ -104,10 +134,6 @@ def default_config() -> TraceConfig:
 
 # (field, value) -> the ROADMAP item that ports its kernel
 _NOT_PORTED = {
-    ("routed_dense", "fwd"): "ROADMAP B5 (dense-slot forward)",
-    ("routed_dense", "both"): "ROADMAP B5 (dense-slot forward)",
-    ("routed_fwd_reduce", "hist"): "ROADMAP B6 (histogram-reduce forward)",
-    ("routed_banded", False): "ROADMAP B7 (pre-band window-routed engine)",
     ("routed_w_dtype", "bf16"): "ROADMAP B1-B3 follow-up (bf16 weight tables)",
     ("trace_method", "ranked"): "ROADMAP A2 (trace_crossings_ranked)",
 }
@@ -125,12 +151,18 @@ _VALID = {
 
 
 def check_supported(config: TraceConfig) -> None:
-    """Raise ``ValueError`` for an unknown value and ``NotImplementedError``
-    for a value whose kernel this port does not have yet."""
+    """Raise ``ValueError`` for an unknown value or combination and
+    ``NotImplementedError`` for a value whose kernel this port does not
+    have yet."""
     for field, allowed in _VALID.items():
         if getattr(config, field) not in allowed:
             raise ValueError(f"{field}={getattr(config, field)!r} "
                              f"(want one of {allowed})")
+    # the JAX package's check (operator.py:281-285), kept so a config
+    # valid on one package is valid on the other
+    if config.routed_fwd_reduce == "hist" and config.routed_band_rows != 8:
+        raise ValueError("routed_fwd_reduce='hist' needs routed_band_rows=8 "
+                         "(the placement gathers address within 8-row bands)")
     for (field, value), item in _NOT_PORTED.items():
         if getattr(config, field) == value:
             raise NotImplementedError(

@@ -9,10 +9,13 @@ device, with two execution modes:
 * ``mode='precomputed'``: packed (lin, lens) crossing tables cached at
   construction; forward / adjoint are PyTorch gather / scatter-add and
   autograd differentiates the forward (:mod:`.ops.project`).
-* ``mode='routed'`` (``'auto'`` on CUDA): the tables become GPU CSR
-  tables built on the device, and forward / backward run the hand-written
+* ``mode='routed'`` (``'auto'`` on CUDA): the tables become GPU tables
+  built on the device, and forward / backward run a pair of hand-written
   CUDA kernels inside a ``torch.autograd.Function``
-  (:mod:`.ops.routed_project`).
+  (:mod:`.ops.routed_project`).  ``routed_dense``, ``routed_fwd_reduce``
+  and ``routed_banded`` pick the pair (:func:`.ops.routed_project.resolve`,
+  the table in :mod:`.config`), the same for ``__call__``, its gradient
+  and ``.T``; only the tables that pair reads are built.
 * ``mode='fused'``: no tables at construction.  Inside the envelope
   (:func:`.ops.fused_project.supported`) the forward is the ``fused_fwd``
   kernel, which traces every ray itself; the gradient runs a routed
@@ -50,12 +53,7 @@ from .ops.project import (
     project_fused,
     project_table,
 )
-from .ops.routed_project import (
-    BACKWARDS,
-    build_tables,
-    routed_bwd_gather,
-    routed_project,
-)
+from .ops.routed_project import BACKWARDS, build_for, resolve, routed_project
 from .ops.trace import GridSpec
 from .viewgeom import ViewGeom
 
@@ -210,7 +208,10 @@ class Operator:
                 "outside the envelope); falling back to mode='precomputed'")
             mode = "precomputed"
         self._mode = mode
-        self._bwd = BACKWARDS[config.routed_dense]
+        # the routed (forward, backward) kernel pair; fused mode's routed
+        # backward reads routed_dense alone
+        self._fwd, self._bwd = (resolve(config) if mode == "routed" else
+                                (None, BACKWARDS[config.routed_dense]))
         # fused_bwd='auto': the routed backward whenever the fused kernel
         # runs, built lazily so a forward-only operator keeps no tables
         self._fused_bwd = config.fused_bwd
@@ -240,9 +241,8 @@ class Operator:
                                              device=self.device))
         elif mode == "routed":
             lin, lens = self._trace()
-            self._tables = build_tables(
-                lin, lens, self._flat_size,
-                transpose=self._bwd is routed_bwd_gather)
+            self._tables = build_for(lin, lens, self._flat_size, self._fwd,
+                                     self._bwd)
         else:
             self.lin, self.lens = self._trace()
 
@@ -276,13 +276,11 @@ class Operator:
     def _ensure_fused_btd(self):
         """The fused mode's backward-only routed tables, built at first
         use: only what ``routed_dense``'s backward reads (the transpose
-        for the gather, the ray-major CSR for the scatter); the forward
-        CSR is never kept."""
+        for the gather, the ray-major CSR for the scatter)."""
         if self._fused_btd is None:
             lin, lens = self._trace()
-            self._fused_btd = build_tables(
-                lin, lens, self._flat_size,
-                transpose=self._bwd is routed_bwd_gather, bwd_only=True)
+            self._fused_btd = build_for(lin, lens, self._flat_size,
+                                        self._bwd)
         return self._fused_btd
 
     # ------------------------------------------------------------------
@@ -331,8 +329,8 @@ class Operator:
             out = self._fused(flat)
         elif self._tables is not None:
             flat2 = flat.reshape(-1, self._flat_size).to(torch.float32)
-            out = torch.stack([routed_project(f, self._tables, self._bwd)
-                               for f in flat2])
+            out = torch.stack([routed_project(f, self._tables, self._bwd,
+                                              self._fwd) for f in flat2])
         else:
             out = project_table(flat, self.lin, self.lens)
         return out.reshape(*chan, *self._rshape)

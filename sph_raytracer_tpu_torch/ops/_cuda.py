@@ -26,8 +26,8 @@ __all__ = ["SOURCES", "LAUNCHES", "reset_launches", "load_library",
            "launch"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = (os.path.join(_PKG, "csrc", "routed_project.cu"),
-           os.path.join(_PKG, "csrc", "fused_project.cu"))
+SOURCES = tuple(os.path.join(_PKG, "csrc", f) for f in (
+    "routed_project.cu", "routed_variants.cu", "fused_project.cu"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 # -fmad=false: no a*b+c is contracted into an FMA, so every float op rounds
 # as the plain PyTorch versions' separate ops do (the routed kernels call
@@ -42,6 +42,10 @@ _ENTRIES = {
     "routed_fwd": [_P, _P, _P, _P, _P, _I, _P],
     "routed_bwd_gather": [_P, _P, _P, _P, _P, _I, _P],
     "routed_bwd_scatter": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "routed_fwd_dense": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "routed_fwd_hist": [_P, _P, _P, _P, _P, _I, _P],
+    "routed_fwd_window": [_P] * 7 + [_I] * 5 + [_P],
+    "routed_bwd_window": [_P] * 8 + [_I] * 5 + [_P],
     "fused_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 

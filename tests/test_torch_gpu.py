@@ -7,8 +7,9 @@ skips tests/conftest.py, which imports jax)::
 
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors (the fused kernel at every padded crossing count it is built for,
-and with the lerp), and one routed and one fused training step on the card
-against the CPU.
+and with the lerp; the routed variants on synthetic tables with empty
+rays, empty windows and a last tile of one ray), and one training step of
+each routed configuration and of fused mode on the card against the CPU.
 """
 import numpy as np
 import pytest
@@ -61,9 +62,72 @@ def test_kernels_match_plain_versions(cuda):
                        rp.routed_bwd_gather(t, dy))
 
 
-def test_routed_step_matches_cpu(cuda):
-    grid, op_c = _problem(cuda)
-    _, op_h = _problem("cpu")
+def _synthetic(seed, R, V, M, vox=None, empty=0.1, long_ray=0):
+    """A (lin, lens) table of R rays x M slots: voxel ids drawn from
+    ``vox`` (default all V), a share ``empty`` of rays without crossings,
+    zero-length slots scattered, and ray 0 given ``long_ray`` crossings
+    (longer than a thread's share of a hist tile)."""
+    rng = np.random.default_rng(seed)
+    M = max(M, long_ray)
+    vox = np.arange(V) if vox is None else np.asarray(vox)
+    lin = rng.choice(vox, size=(R, M))
+    lens = rng.random((R, M)).astype(np.float32)
+    lens[rng.random((R, M)) < 0.3] = 0
+    lens[rng.random(R) < empty] = 0
+    if long_ray:
+        lens[0, :long_ray] = 0.5
+    lens[1:, 40:] = 0
+    return torch.tensor(lin, dtype=torch.int32), torch.tensor(lens)
+
+
+# R = 2·1024 + 1 = 8·256 + 1: the last window tile (WIN_G = 1024) and the
+# last hist tile (256 rays) hold one ray; the third case draws its voxels
+# from two ranges of 300, so most windows are empty
+VARIANT_CASES = [dict(R=1, V=7, M=4),
+                 dict(R=2049, V=1541, M=48, long_ray=3000),
+                 dict(R=2049, V=9000, M=40,
+                      vox=np.r_[0:300, 8700:9000], empty=0.5)]
+
+
+@pytest.mark.parametrize("case", range(len(VARIANT_CASES)))
+def test_variant_kernels_match_plain_versions(cuda, case):
+    kw = VARIANT_CASES[case]
+    lin, lens = _synthetic(case, **kw)
+    lin, lens, V = lin.to(cuda), lens.to(cuda), kw["V"]
+    t = rp.build_tables(lin, lens, V)
+    wins = [rp.build_window_tables(lin, lens, V),
+            rp.build_window_tables(lin, lens, V, G=64, W=128)]
+    gen = torch.Generator().manual_seed(case)
+    d = torch.rand(V, generator=gen).to(cuda)
+    dy = torch.randn(kw["R"], generator=gen).to(cuda)
+    checks = [(rp.routed_fwd_dense, rp.routed_fwd_dense_ref, t, d),
+              (rp.routed_fwd_hist, rp.routed_fwd_hist_ref, t, d)]
+    for w in wins:
+        checks += [(rp.routed_fwd_window, rp.routed_fwd_window_ref, w, d),
+                   (rp.routed_bwd_window, rp.routed_bwd_window_ref, w, dy)]
+    for kern, ref, tab, x in checks:
+        before = rp.LAUNCHES[kern.__name__]
+        got, want = kern(tab, x), ref(tab, x)
+        torch.cuda.synchronize()
+        assert rp.LAUNCHES[kern.__name__] == before + 1
+        # shared or global atomics sum in a run-to-run order
+        torch.testing.assert_close(
+            got, want, rtol=1e-4,
+            atol=1e-5 * max(float(want.abs().max()), 1e-30))
+
+
+ROUTED_CONFIGS = [dict(), dict(routed_dense="off"),
+                  dict(routed_dense="fwd"), dict(routed_dense="both"),
+                  dict(routed_fwd_reduce="hist"),
+                  dict(routed_banded=False)]
+
+
+@pytest.mark.parametrize("cfg", ROUTED_CONFIGS, ids=str)
+def test_routed_step_matches_cpu(cuda, cfg):
+    config = prt.TraceConfig(**cfg)
+    grid, op_c = _problem(cuda, config=config)
+    _, op_h = _problem("cpu", config=config)
+    assert op_c._fwd is op_h._fwd and op_c._bwd is op_h._bwd
     x = np.random.default_rng(1).random(tuple(grid.shape)).astype(np.float32)
     grads = []
     for op in (op_c, op_h):

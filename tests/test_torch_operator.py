@@ -325,8 +325,6 @@ def test_view_times_routed_matches_precomputed():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("field,value", [
-    ("routed_dense", "fwd"), ("routed_dense", "both"),
-    ("routed_fwd_reduce", "hist"), ("routed_banded", False),
     ("routed_w_dtype", "bf16"), ("trace_method", "ranked"),
 ])
 def test_unported_values_raise(field, value):
