@@ -55,10 +55,18 @@ Phases (any failure raises and exits non-zero):
    after;
 13. variant timings: each config's training step, each new kernel beside
    its plain version, its bound and one PyTorch call (``torch.mv`` on the
-   CSR of A, or of Aᵀ for ``routed_bwd_window``).
+   CSR of A, or of Aᵀ for ``routed_bwd_window``);
+14. the window-major forward ``routed_fwd_densew`` (B8) on phase 12's
+   chunk table: against its plain version, its image against
+   ``routed_fwd``'s, the adjoint identity with ``routed_bwd_window``, its
+   atomics counted from the table; then its path,
+   ``tools.wfwd_probe.probe('vol100')`` (100³ grid, the flagship's views),
+   counters reset just before and read just after, its setup seconds, and
+   B8 there against its plain version and B1's image; B8's time beside its
+   plain version, its bound and ``torch.mv`` at the flagship.
 
 Before the last line: the card's name and power limit, then the
-``{"kernels": [...]}`` line (8 kernels); the last line is
+``{"kernels": [...]}`` line (9 kernels); the last line is
 ``{"ok": true, "device": {...}}``.  The run's wall seconds are printed
 before them.  Imports nothing of JAX.
 """
@@ -71,7 +79,6 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12          # H100 SXM data sheet, f32 outside tensor cores
 REPLACES = {
     "routed_fwd": "sph_raytracer_tpu/ops/routed_project.py:581",
@@ -82,6 +89,7 @@ REPLACES = {
     "routed_fwd_hist": "sph_raytracer_tpu/ops/routed_project.py:670",
     "routed_fwd_window": "sph_raytracer_tpu/ops/routed_project.py:200",
     "routed_bwd_window": "sph_raytracer_tpu/ops/routed_project.py:312",
+    "routed_fwd_densew": "sph_raytracer_tpu/ops/routed_project.py:1041",
 }
 SOURCE = "sph_raytracer_tpu_torch/csrc/routed_project.cu"
 FUSED_SOURCE = "sph_raytracer_tpu_torch/csrc/fused_project.cu"
@@ -96,22 +104,6 @@ KNIFE_ROUTED = 1e-3
 
 def log(*a):
     print(*a, flush=True)
-
-
-def cuda_ms(torch, fn, n=20, warm=3):
-    """Mean milliseconds per call of ``fn`` over ``n`` calls (CUDA
-    events, after ``warm`` untimed calls)."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(n):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / n
 
 
 def check_close(name, got, want, rtol, atol):
@@ -204,6 +196,9 @@ def main(argv):
     from sph_raytracer_tpu_torch.ops import routed_project as rp
     from sph_raytracer_tpu_torch.ops.project import precompute_table
     from sph_raytracer_tpu_torch.ops.trace import GridSpec
+    from sph_raytracer_tpu_torch.tools import wfwd_probe
+    from sph_raytracer_tpu_torch.tools.wfwd_probe import (HBM_BYTES_PER_S,
+                                                          cuda_ms)
 
     # f32 stays f32 (no TF32 anywhere on the path)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -361,7 +356,7 @@ def main(argv):
         return one
 
     one = make_step(op, y)
-    step_ms = cuda_ms(torch, one, n=30, warm=5)
+    step_ms = cuda_ms(one, n=30, warm=5)
     log(f"[step] {step_ms:.4f} ms/step, {R / (step_ms * 1e-3):.6g} rays/s "
         f"(fwd+bwd, {R} rays), peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
@@ -392,8 +387,8 @@ def main(argv):
                 "routed_bwd_scatter": off_launches["routed_bwd_scatter"]}
     kernels = []
     for name, (kern, plain, lib) in timed.items():
-        ms, plain_ms = cuda_ms(torch, kern), cuda_ms(torch, plain)
-        lib_ms = cuda_ms(torch, lib)
+        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+        lib_ms = cuda_ms(lib)
         byte_ms = bytes_[name] / HBM_BYTES_PER_S * 1e3
         op_ms = 2 * nnz / F32_FLOPS * 1e3
         kernels.append({
@@ -548,15 +543,15 @@ def main(argv):
 
     # 11. fused timings -------------------------------------------------------
     live = fused_live(torch, fp, fgs, frays)
-    f_ms = cuda_ms(torch, lambda: fp.fused_fwd(fgs, frays, d))
-    f_plain = cuda_ms(torch, lambda: fp.fused_fwd_ref(fgs, frays, d), n=5,
+    f_ms = cuda_ms(lambda: fp.fused_fwd(fgs, frays, d))
+    f_plain = cuda_ms(lambda: fp.fused_fwd_ref(fgs, frays, d), n=5,
                       warm=1)
     f_ops = fused_ops(fgs, frays.n, mp, live, lerp=False)
     f_bytes = fused_bytes(frays.n, V, off0=False, lerp=False)
     f_op_ms, f_byte_ms = f_ops / F32_FLOPS * 1e3, f_bytes / HBM_BYTES_PER_S * 1e3
     dlive = fused_live(torch, fp, opd.gs, drays)
-    d_ms = cuda_ms(torch, lambda: fp.fused_fwd(opd.gs, drays, dd))
-    d_plain = cuda_ms(torch, lambda: fp.fused_fwd_ref(opd.gs, drays, dd),
+    d_ms = cuda_ms(lambda: fp.fused_fwd(opd.gs, drays, dd))
+    d_plain = cuda_ms(lambda: fp.fused_fwd_ref(opd.gs, drays, dd),
                       n=5, warm=1)
     d_op_ms = fused_ops(opd.gs, drays.n, fp.padded_crossings(opd.gs), dlive,
                         lerp=True) / F32_FLOPS * 1e3
@@ -581,7 +576,7 @@ def main(argv):
         "library_ms": None})
 
     fone = make_step(opf, yf)
-    fstep_ms = cuda_ms(torch, fone, n=30, warm=5)
+    fstep_ms = cuda_ms(fone, n=30, warm=5)
     log(f"[fused step] {fstep_ms:.4f} ms/step, "
         f"{R / (fstep_ms * 1e-3):.6g} rays/s (fused_fwd + "
         f"routed_bwd_gather, {R} rays)")
@@ -685,7 +680,7 @@ def main(argv):
     vsteps = {}
     for name, vop in vops.items():
         vsteps[name] = make_step(vop, y)
-        v_ms = cuda_ms(torch, vsteps[name], n=30, warm=5)
+        v_ms = cuda_ms(vsteps[name], n=30, warm=5)
         log(f"[variant {name} step] {v_ms:.4f} ms/step, "
             f"{R / (v_ms * 1e-3):.6g} rays/s (fwd+bwd, {R} rays); "
             f"routed_dense='auto' step {step_ms:.4f} ms")
@@ -710,10 +705,10 @@ def main(argv):
                   "routed_bwd_window": var_launches["window"]}
     for name, (t, x, ref) in new_checks.items():
         kern = getattr(rp, name)
-        ms = cuda_ms(torch, lambda: kern(t, x))
-        plain_ms = cuda_ms(torch, lambda: ref(t, x))
+        ms = cuda_ms(lambda: kern(t, x))
+        plain_ms = cuda_ms(lambda: ref(t, x))
         mat = AT if name == "routed_bwd_window" else A
-        lib_ms = cuda_ms(torch, lambda: torch.mv(mat, x))
+        lib_ms = cuda_ms(lambda: torch.mv(mat, x))
         byte_ms = var_bytes[name] / HBM_BYTES_PER_S * 1e3
         op_ms = 2 * t.nnz / F32_FLOPS * 1e3
         kernels.append({
@@ -726,6 +721,71 @@ def main(argv):
         log(f"[kernel] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library {lib_ms:.4f} ms, bound {max(byte_ms, op_ms):.4f} ms "
             f"({var_bytes[name]} bytes), {byte_ms / ms:.1%} of the bound")
+
+    # 14. the window-major forward (B8) on phase 12's chunk table, then the
+    # path that runs it: the probe at vol100 ------------------------------
+    name = "routed_fwd_densew"
+    y_dw = rp.routed_fwd_densew(t_win, d)
+    want = rp.routed_fwd_densew_ref(t_win, d)
+    # global atomics sum in a run-to-run order: rtol 1e-4
+    errs[name] = check_close(name, y_dw, want, 1e-4,
+                             1e-5 * float(want.abs().max()))
+    check_close(f"{name} image vs routed_fwd", y_dw, y_routed, 1e-4,
+                1e-6 * float(y_routed.abs().max()))
+    lhs = float(torch.dot(y_dw.double(), dyp.double()))
+    rhs = float(torch.dot(d.double(), rp.routed_bwd_window(t_win,
+                                                           dyp).double()))
+    log(f"[check] adjoint <Ax,y>=<x,A'y> {name}/routed_bwd_window: rel "
+        f"{abs(lhs - rhs) / abs(lhs):.3e}")
+    if not abs(lhs - rhs) <= 1e-5 * abs(lhs):
+        raise AssertionError(f"adjoint identity fails for {name}")
+    runs, atomics = wfwd_probe.densew_atomics(t_win)
+    log(f"[densew] flagship: {runs} (ray, chunk) runs, {atomics} atomics "
+        f"issued (one per run and 32-crossing slice); routed_fwd_dense "
+        f"issues one a crossing, {t_win.nnz}")
+
+    torch.cuda.synchronize()
+    rp.reset_launches()
+    probe = wfwd_probe.probe("vol100")
+    torch.cuda.synchronize()
+    probe_launches = dict(rp.LAUNCHES)
+    log(f"[probe vol100] R={probe['n_rays']} V={probe['n_vox']} "
+        f"nnz={probe['nnz']}, setup {probe['setup_s']:.3f} s (trace and "
+        f"both tables), {probe['runs']} runs, {probe['atomics']} atomics; "
+        f"launches { {k: n for k, n in probe_launches.items() if n} }")
+    for r in probe["kernels"]:
+        log(f"[probe vol100] {r['name']}: {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms (bytes), tables {r['table_bytes']} B, "
+            f"chunks {r['chunks']}, max diff vs routed_fwd "
+            f"{r['max_abs_diff_vs_routed_fwd']:.3e}")
+        if probe_launches[r["name"]] < 1:
+            raise AssertionError(f"the probe missed {r['name']}")
+    pw, pd, py = probe["win"], probe["d"], probe["y"]
+    check_close(f"{name} vol100", py[name], rp.routed_fwd_densew_ref(pw, pd),
+                1e-4, 1e-5 * float(py[name].abs().max()))
+    for other in ("routed_fwd_window", name):
+        check_close(f"{other} vol100 image vs routed_fwd", py[other],
+                    py["routed_fwd"], 1e-4,
+                    1e-6 * float(py["routed_fwd"].abs().max()))
+    del probe, pw, pd, py
+
+    ms = cuda_ms(lambda: rp.routed_fwd_densew(t_win, d))
+    plain_ms = cuda_ms(lambda: rp.routed_fwd_densew_ref(t_win, d))
+    lib_ms = cuda_ms(lambda: torch.mv(A, d))
+    dw_bytes = nbytes(t_win.win_ptr, t_win.bwd_order) + win_common \
+        + 4 * V + 4 * R
+    byte_ms = dw_bytes / HBM_BYTES_PER_S * 1e3
+    op_ms = 2 * t_win.nnz / F32_FLOPS * 1e3
+    kernels.append({
+        "name": name, "route": "cuda", "source": VARIANTS_SOURCE,
+        "replaces": REPLACES[name], "launches": probe_launches[name],
+        "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(byte_ms, op_ms),
+        "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+        "library_ms": lib_ms})
+    log(f"[kernel] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {lib_ms:.4f} ms, bound {max(byte_ms, op_ms):.4f} ms "
+        f"({dw_bytes} bytes), {byte_ms / ms:.1%} of the bound")
 
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile

@@ -3,7 +3,7 @@
 // routed_project.cu (sph_raytracer_tpu_torch/ops/_cuda.py builds both with
 // one nvcc call at first use).
 //
-// All four compute the same sparse matrix A (rays x voxels) of traced
+// All five compute the same sparse matrix A (rays x voxels) of traced
 // segment lengths as routed_project.cu, in f32 with f32 accumulation, each
 // over a different table layout built by ops/routed_project.py:
 //
@@ -16,6 +16,8 @@
 //                         window chunk table
 //   routed_bwd_window  <- _bwd_pallas              (B7b): dD = A^T.dy over
 //                         the same chunk table
+//   routed_fwd_densew  <- _fwd_banded_densew_pallas (B8): y = A.d over the
+//                         same chunk table, window-major
 //
 // (all in sph_raytracer_tpu/ops/routed_project.py).  As in
 // routed_project.cu, the TPU kernels' int8 lane routes, 8-row bands,
@@ -65,6 +67,21 @@
 //   groups that walk different chunks at once, each with its own staging
 //   buffer, so a CTA holds G + kGroups·W (forward) or W + kGroups·G
 //   (backward) floats of shared memory (12 KB / 33 KB).
+// * routed_fwd_densew: the TPU kernel's idea is a window-major forward:
+//   each density window is fetched once (one DMA a superchunk), and the
+//   whole y stays resident in VMEM, accumulated across the sequential grid.
+//   Here one CTA per voxel window stages the window's W density values in
+//   shared memory once and walks the window's chunks in tile order
+//   (bwd_order, as routed_bwd_window), its kGroups groups on different
+//   chunks; a warp sums each ray's run (crossings of a chunk are sorted by
+//   ray) and adds the total into the global y, which the C entry zeroes
+//   first.  A y resident on chip does not carry over: CTAs run in
+//   parallel and in no order, and each (tile, window) pair is one chunk,
+//   so a shared y tile would collect nothing across chunks.  The resident
+//   y is the global one (1 MB at the flagship), kept in L2, one atomic per
+//   (ray, chunk, 32-crossing slice) run instead of B5's one per crossing.
+//   The atomics sum in a run-to-run order; the hottest window's CTA holds
+//   about 4x the mean window's crossings at the flagship.
 
 #include <cuda_runtime.h>
 
@@ -267,6 +284,54 @@ routed_bwd_window_kernel(const int* __restrict__ win_ptr,
   for (int i = threadIdx.x; i < nv; i += kWinBlock) dD[v0 + i] = dD_s[i];
 }
 
+// y += A.d over the same chunk table, window-major: one CTA per voxel
+// window, its chunks in tile order (bwd_order).  Shared memory: d_s[W],
+// staged once.  Each ray's run is summed in the warp and added into the
+// global y.
+__global__ void __launch_bounds__(kWinBlock)
+routed_fwd_densew_kernel(const int* __restrict__ win_ptr,
+                         const int* __restrict__ bwd_order,
+                         const int* __restrict__ ckey,
+                         const int* __restrict__ cptr,
+                         const int* __restrict__ loc,
+                         const float* __restrict__ val,
+                         const float* __restrict__ d, float* __restrict__ y,
+                         int n_win, int n_vox, int G, int W) {
+  extern __shared__ float d_s[];
+  const int g = threadIdx.x / kGroupThreads;
+  const int gt = threadIdx.x % kGroupThreads;
+  const int w = blockIdx.x;
+  const int j_beg = __ldg(win_ptr + w), j_end = __ldg(win_ptr + w + 1);
+  if (j_beg == j_end) return;  // an empty window (the whole CTA returns)
+  const int v0 = w * W;
+  const int nv = min(W, n_vox - v0);
+  for (int i = threadIdx.x; i < nv; i += kWinBlock)
+    d_s[i] = __ldg(d + v0 + i);
+  __syncthreads();
+  for (int j = j_beg + g; j < j_end; j += kGroups) {
+    const int c = __ldg(bwd_order + j);
+    float* y_t = y + static_cast<long long>(__ldg(ckey + c) / n_win) * G;
+    const int k_beg = __ldg(cptr + c), k_end = __ldg(cptr + c + 1);
+    for (int k0 = k_beg; k0 < k_end; k0 += kUnroll * kGroupThreads) {
+      unsigned p[kUnroll];
+      float v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int k = k0 + u * kGroupThreads + gt;
+        p[u] = k < k_end ? static_cast<unsigned>(__ldg(loc + k)) : 0u;
+        v[u] = k < k_end ? __ldg(val + k) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const bool live = k0 + u * kGroupThreads + gt < k_end;
+        const int key = live ? static_cast<int>(p[u] >> 16) : -1;
+        float x = live ? v[u] * d_s[p[u] & 0xffffu] : 0.f;
+        if (warp_run_sum(key, x)) atomicAdd(y_t + key, x);
+      }
+    }
+  }
+}
+
 unsigned cdiv(long long n, long long m) {
   return static_cast<unsigned>((n + m - 1) / m);
 }
@@ -331,6 +396,23 @@ int routed_bwd_window(const void* win_ptr, const void* bwd_order,
         static_cast<const int*>(cptr), static_cast<const int*>(loc),
         static_cast<const float*>(val), static_cast<const float*>(dy),
         static_cast<float*>(dD), n_win, n_rays, n_vox, G, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int routed_fwd_densew(const void* win_ptr, const void* bwd_order,
+                      const void* ckey, const void* cptr, const void* loc,
+                      const void* val, const void* d, void* y, int n_win,
+                      int n_rays, int n_vox, int G, int W, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(y, 0, sizeof(float) * n_rays, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_win > 0)
+    routed_fwd_densew_kernel<<<n_win, kWinBlock, sizeof(float) * W, s>>>(
+        static_cast<const int*>(win_ptr),
+        static_cast<const int*>(bwd_order), static_cast<const int*>(ckey),
+        static_cast<const int*>(cptr), static_cast<const int*>(loc),
+        static_cast<const float*>(val), static_cast<const float*>(d),
+        static_cast<float*>(y), n_win, n_vox, G, W);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,10 +1,11 @@
 """Build, bind and launch the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source in :data:`SOURCES` is compiled by one ``nvcc``
-call into one shared library with a plain C interface, loaded with ctypes.
-The build runs at first use, on the machine with the card, into the
-gitignored ``_build/`` directory under a name keyed by the hash of all
-sources and flags; there is no fallback when it fails.
+Every ``csrc/*.cu`` source in :data:`SOURCES` is compiled by its own
+``nvcc`` call, all started together, and the objects are linked into one
+shared library with a plain C interface, loaded with ctypes.  The build
+runs at first use, on the machine with the card, into the gitignored
+``_build/`` directory under a name keyed by the hash of all sources and
+flags; there is no fallback when it fails.
 
 Each C entry point takes device pointers and the stream as ``void*`` and
 sizes as ``int``, and returns ``cudaGetLastError()`` right after its
@@ -19,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -33,8 +35,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # as the plain PyTorch versions' separate ops do (the routed kernels call
 # fmaf explicitly, which the flag leaves alone)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> ctypes argument types (pointers, ints, then the stream)
@@ -46,6 +47,7 @@ _ENTRIES = {
     "routed_fwd_hist": [_P, _P, _P, _P, _P, _I, _P],
     "routed_fwd_window": [_P] * 7 + [_I] * 5 + [_P],
     "routed_bwd_window": [_P] * 8 + [_I] * 5 + [_P],
+    "routed_fwd_densew": [_P] * 8 + [_I] * 5 + [_P],
     "fused_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
@@ -86,11 +88,28 @@ def load_library():
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES],
-                              capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
+        nvcc = _nvcc()
+
+        def run(cmd):
+            return subprocess.run(cmd, capture_output=True, text=True)
+
+        try:
+            # the sources compile in parallel (each is self-contained),
+            # then one link
+            with ThreadPoolExecutor(len(SOURCES)) as pool:
+                procs = list(pool.map(run, (
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                    for src, obj in zip(SOURCES, objs))))
+            if all(p.returncode == 0 for p in procs):
+                procs.append(run([nvcc, "-shared", "-o", tmp, *objs]))
+            log = "".join(p.stdout + p.stderr for p in procs)
+            if any(p.returncode != 0 for p in procs):
+                raise RuntimeError(f"nvcc failed:\n{log}")
+        finally:
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
     for name, argtypes in _ENTRIES.items():

@@ -38,7 +38,12 @@ routed_fwd_dense    ``_fwd_banded_dense_pallas`` (B5) routed_fwd_dense_ref
 routed_fwd_hist     ``_fwd_banded_hist_pallas`` (B6)  routed_fwd_hist_ref
 routed_fwd_window   ``_fwd_pallas`` (B7a)             routed_fwd_window_ref
 routed_bwd_window   ``_bwd_pallas`` (B7b)             routed_bwd_window_ref
+routed_fwd_densew   ``_fwd_banded_densew_pallas``     routed_fwd_densew_ref
+                    (B8)
 =================== ================================= ======================
+
+``routed_fwd_densew`` has no ``TraceConfig`` value, as B8 has none in the
+JAX package: :mod:`sph_raytracer_tpu_torch.tools.wfwd_probe` runs it.
 
 :func:`resolve` maps a ``TraceConfig`` to its (forward, backward) pair and
 :func:`build_for` builds the tables that pair reads.
@@ -72,6 +77,7 @@ __all__ = [
     "routed_fwd_hist",
     "routed_fwd_window",
     "routed_bwd_window",
+    "routed_fwd_densew",
     "routed_fwd_ref",
     "routed_bwd_gather_ref",
     "routed_bwd_scatter_ref",
@@ -79,6 +85,7 @@ __all__ = [
     "routed_fwd_hist_ref",
     "routed_fwd_window_ref",
     "routed_bwd_window_ref",
+    "routed_fwd_densew_ref",
     "routed_project",
     "resolve",
     "FORWARDS",
@@ -331,15 +338,31 @@ def routed_bwd_window_ref(t: WindowTables, dy):
     return dD.index_add_(0, vox, prod)
 
 
+def routed_fwd_densew_ref(t: WindowTables, d):
+    """y = A·d window by window: the chunks in ``bwd_order``, d[voxel]·val
+    gathered and added into y by ray."""
+    ray, vox = _window_ids(t)
+    order = t.bwd_order.long()
+    n = torch.diff(t.cptr).long()[order]
+    # crossing ids of the chunks in walk order: each chunk's start, then
+    # consecutive ids
+    start = t.cptr[:-1].long()[order] - (torch.cumsum(n, 0) - n)
+    k = torch.repeat_interleave(start, n, output_size=t.nnz) + torch.arange(
+        t.nnz, device=start.device)
+    prod = d.index_select(0, vox[k]) * t.val[k].to(d.dtype)
+    y = torch.zeros(t.n_rays, dtype=d.dtype, device=d.device)
+    return y.index_add_(0, ray[k], prod)
+
+
 def _check(x, n, what, tables):
     """Validate a kernel input: 1-D float32 of length n on the tables'
     CUDA device."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{what} is on {x.device}; the CUDA kernels take "
-                         "CUDA tensors (CPU tensors use the plain version)")
     if x.dtype != torch.float32 or x.shape != (n,):
         raise ValueError(f"{what} must be float32 of shape ({n},), got "
                          f"{x.dtype} {tuple(x.shape)}")
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} is on {x.device}; the CUDA kernels take "
+                         "CUDA tensors (CPU tensors use the plain version)")
     if tables.device != x.device:
         raise ValueError(f"tables on {tables.device}, {what} on "
                          f"{x.device}")
@@ -441,6 +464,19 @@ def routed_bwd_window(t: WindowTables, dy):
            (t.win_ptr, t.bwd_order, t.ckey, t.cptr, t.loc, t.val, dy, dD),
            (t.n_win, t.n_rays, t.n_vox, t.G, t.W))
     return dD
+
+
+def routed_fwd_densew(t: WindowTables, d):
+    """y (R,) = A·d over the window chunk table, window-major, by atomics;
+    kernel ``routed_fwd_densew``."""
+    if d.device.type == "cpu":
+        return routed_fwd_densew_ref(t, d)
+    d = _check(d, t.n_vox, "density", t)
+    y = torch.empty(t.n_rays, dtype=torch.float32, device=d.device)
+    launch("routed_fwd_densew",
+           (t.win_ptr, t.bwd_order, t.ckey, t.cptr, t.loc, t.val, d, y),
+           (t.n_win, t.n_rays, t.n_vox, t.G, t.W))
+    return y
 
 
 # TraceConfig.routed_dense -> the banded engine's forward and backward

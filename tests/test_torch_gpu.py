@@ -104,7 +104,8 @@ def test_variant_kernels_match_plain_versions(cuda, case):
               (rp.routed_fwd_hist, rp.routed_fwd_hist_ref, t, d)]
     for w in wins:
         checks += [(rp.routed_fwd_window, rp.routed_fwd_window_ref, w, d),
-                   (rp.routed_bwd_window, rp.routed_bwd_window_ref, w, dy)]
+                   (rp.routed_bwd_window, rp.routed_bwd_window_ref, w, dy),
+                   (rp.routed_fwd_densew, rp.routed_fwd_densew_ref, w, d)]
     for kern, ref, tab, x in checks:
         before = rp.LAUNCHES[kern.__name__]
         got, want = kern(tab, x), ref(tab, x)
