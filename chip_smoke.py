@@ -15,7 +15,10 @@ Phases (any failure raises and exits non-zero):
    ``ConeRectGeom((50, 100))`` detectors (250,000 rays), ``mode='auto'``
    on CUDA (= routed), float32 — the configuration of ``bench.py``;
 4. each kernel against its plain PyTorch version on the same CUDA tensors
-   at the flagship's shapes, plus the adjoint identity;
+   at the flagship's shapes, plus the adjoint identity; the global atomics
+   ``routed_bwd_scatter`` issues (its own counts: one a distinct (ray tile,
+   voxel) pair, plus any crossing that overflowed its tile's shared
+   table) against one a crossing before the tiles;
 5. goldens on the card: ``tests/goldens/collection_orbit.npz`` through the
    CUDA kernels (float64 trace, float32 tables), and the float32 routed
    ``Operator`` on the card against the same operator on the CPU;
@@ -48,11 +51,12 @@ Phases (any failure raises and exits non-zero):
    ``'fwd'`` (``routed_fwd_dense`` + ``routed_bwd_scatter``),
    ``routed_fwd_reduce='hist'`` (``routed_fwd_hist`` + the gather) and
    ``routed_banded=False`` (``routed_fwd_window`` + ``routed_bwd_window`` on
-   the window chunk table).  From those operators' tables: each new kernel
-   against its plain version, the adjoint identity of each pair, each
-   variant's image against ``routed_fwd``'s; then ``retrieval.gd`` for 5
-   iterations through each, counters reset just before and read just
-   after;
+   the window chunk table).  ``routed_bwd_window``'s work items: their
+   count, the largest, ``K``.  From those operators' tables: each new
+   kernel against its plain version, the adjoint identity of each pair,
+   each variant's image against ``routed_fwd``'s; then ``retrieval.gd``
+   for 5 iterations through each, counters reset just before and read
+   just after;
 13. variant timings: each config's training step, each new kernel beside
    its plain version, its bound and one PyTorch call (``torch.mv`` on the
    CSR of A, or of Aᵀ for ``routed_bwd_window``);
@@ -257,6 +261,17 @@ def main(argv):
     errs["routed_bwd_scatter"] = check_close(
         "routed_bwd_scatter", rp.routed_bwd_scatter(tab, dy), s_ref, 1e-4,
         1e-5 * float(s_ref.abs().max()))
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    rp.routed_bwd_scatter(tab, dy, counts=counts)
+    issued, over = counts.tolist()
+    pairs = rp.scatter_atomics(tab)
+    log(f"[scatter] {issued} global atomics issued, {over} of them for "
+        f"crossings that overflowed a {rp.SCATTER_SLOTS}-slot table; "
+        f"{pairs} distinct ({rp.SCATTER_TILE}-ray tile, voxel) pairs; one a "
+        f"crossing before the tiles: {nnz}")
+    if not (pairs <= issued < nnz and (over > 0 or issued == pairs)):
+        raise AssertionError("routed_bwd_scatter's atomics disagree with "
+                             "its tiles' (tile, voxel) pairs")
     lhs = float(torch.dot(rp.routed_fwd(tab, d).double(), dyp.double()))
     for bwd in (rp.routed_bwd_gather, rp.routed_bwd_scatter):
         rhs = float(torch.dot(d.double(), bwd(tab, dyp).double()))
@@ -581,6 +596,9 @@ def main(argv):
         f"{R / (fstep_ms * 1e-3):.6g} rays/s (fused_fwd + "
         f"routed_bwd_gather, {R} rays)")
 
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
     # 12. the routed engine's variants on the flagship ----------------------
     variants = {  # name -> (TraceConfig fields, forward, backward)
         "both": (dict(routed_dense="both"), rp.routed_fwd_dense,
@@ -620,6 +638,13 @@ def main(argv):
         f"{len(t_win.ckey)} non-empty chunks; crossings per tile max "
         f"{int(per_tile.max())} mean {float(per_tile.mean()):.1f}, per "
         f"window max {int(per_win.max())} mean {float(per_win.mean()):.1f}")
+    ip = t_win.item_ptr.long()
+    per_item = (cs[ip[1:]] - cs[ip[:-1]]).double()
+    log(f"[variant window] routed_bwd_window: {t_win.n_items} work items of "
+        f"at most K={t_win.K} crossings (a larger chunk alone), largest "
+        f"{int(per_item.max())}, mean {float(per_item.mean()):.1f}; "
+        f"{int(torch.unique(t_win.item_win).numel())} non-empty windows; "
+        f"item list {nbytes(t_win.item_ptr, t_win.item_win)} B")
     # shared or global atomics sum in a run-to-run order: rtol 1e-4
     new_checks = {
         "routed_fwd_dense": (t_both, d, rp.routed_fwd_dense_ref),
@@ -685,9 +710,6 @@ def main(argv):
             f"{R / (v_ms * 1e-3):.6g} rays/s (fwd+bwd, {R} rays); "
             f"routed_dense='auto' step {step_ms:.4f} ms")
 
-    def nbytes(*ts):
-        return sum(t.numel() * t.element_size() for t in ts)
-
     win_common = nbytes(t_win.ckey, t_win.cptr, t_win.loc, t_win.val)
     var_bytes = {
         "routed_fwd_dense": nbytes(t_both.vox_ptr, t_both.ray, t_both.valT)
@@ -696,7 +718,8 @@ def main(argv):
         + 4 * V + 4 * R,
         "routed_fwd_window": nbytes(t_win.tile_ptr) + win_common
         + 4 * V + 4 * R,
-        "routed_bwd_window": nbytes(t_win.win_ptr, t_win.bwd_order)
+        "routed_bwd_window": nbytes(t_win.win_ptr, t_win.bwd_order,
+                                    t_win.item_ptr, t_win.item_win)
         + win_common + 4 * R + 4 * V,
     }
     var_launch = {"routed_fwd_dense": var_launches["both"],

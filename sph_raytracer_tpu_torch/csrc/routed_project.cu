@@ -30,6 +30,22 @@
 // transactions; the gathered vector goes through the read-only path
 // (__ldg); the row sum is a register shuffle tree; one store per row.
 // No shared memory, no atomics in the gather kernels.
+//
+// routed_bwd_scatter reads the same ray-major CSR and no transpose, so it
+// must scatter: one global atomicAdd a crossing (17.1 M onto 125,000
+// voxels at the flagship) held it at 4x torch.mv's time on the transpose
+// (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6).
+// Neighbouring rays (adjacent pixels of one view) cross mostly the same
+// voxels, so it runs one CTA per tile of consecutive rays (each warp takes
+// whole rays, its lanes striding the ray's crossings, coalesced) and adds
+// each crossing's dy[ray]·val into an open-addressing table in shared
+// memory keyed by voxel (atomicCAS claims a slot, a shared atomicAdd sums
+// into it).  The CTA then issues one global atomicAdd per occupied slot.
+// A crossing whose voxel finds no slot within kProbes goes straight to a
+// global atomic, so a tile with more distinct voxels than slots stays
+// right; the optional counts (int32 x 2) gather the global atomics issued
+// and those overflowed crossings.  On the card the shared-table work, not
+// the global atomics, now sets its time (PERF.md section 6).
 
 #include <cuda_runtime.h>
 
@@ -82,23 +98,107 @@ routed_bwd_gather_kernel(const int* __restrict__ vox_ptr,
   csr_row_dot(vox_ptr, ray, valT, dy, dD, n_vox);
 }
 
-// dD += A^T.dy over the ray-major CSR (one warp per ray, dy[ray] read
-// once): no transpose is needed, but the atomic order varies run to run.
-__global__ void __launch_bounds__(kBlock)
+constexpr int kScatterBlock = 512;
+constexpr int kScatterWarps = kScatterBlock / kWarp;
+constexpr int kScatterUnroll = 4;  // crossings a lane loads before adding
+constexpr int kProbes = 8;         // slots a crossing tries before overflow
+constexpr int kEmpty = -1;         // the key of a free slot
+
+// Add v into the slot of voxel `key` in the shared table (keys_s, vals_s)
+// of mask + 1 slots, probing linearly from slot key & mask (a ray's
+// neighbouring voxels land in neighbouring banks).  A slot's key goes from
+// kEmpty to a voxel once, by atomicCAS, and never changes again.  Returns
+// false when kProbes slots in a row hold other voxels.
+__device__ __forceinline__ bool table_add(int* keys_s, float* vals_s,
+                                          unsigned mask, int key, float v) {
+  unsigned h = static_cast<unsigned>(key) & mask;
+  for (int p = 0; p < kProbes; ++p, h = (h + 1) & mask) {
+    int cur = static_cast<volatile int*>(keys_s)[h];
+    if (cur == kEmpty) cur = atomicCAS(keys_s + h, kEmpty, key);
+    if (cur == kEmpty || cur == key) {
+      atomicAdd(vals_s + h, v);
+      return true;
+    }
+  }
+  return false;
+}
+
+// dD += A^T.dy over the ray-major CSR, one CTA per tile of `tile` rays.
+// Shared memory: keys_s[slots], vals_s[slots], the tile's row pointers
+// ptr_s[tile + 1] and its dy_s[tile].  Each warp takes whole rays (r =
+// warp, warp + kScatterWarps, ...), its lanes striding the ray's
+// crossings (coalesced), dy[r] one shared read a ray.  The atomics (shared
+// and global) sum in a run-to-run order.
+__global__ void __launch_bounds__(kScatterBlock)
 routed_bwd_scatter_kernel(const int* __restrict__ row_ptr,
                           const int* __restrict__ col,
                           const float* __restrict__ val,
                           const float* __restrict__ dy,
-                          float* __restrict__ dD, int n_rays) {
-  const long long row =
-      (static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x) / kWarp;
+                          float* __restrict__ dD, int* __restrict__ counts,
+                          int n_rays, int tile, int slots) {
+  extern __shared__ int smem[];
+  int* keys_s = smem;
+  float* vals_s = reinterpret_cast<float*>(smem + slots);
+  int* ptr_s = smem + 2 * slots;
+  float* dy_s = reinterpret_cast<float*>(ptr_s + tile + 1);
+  const int r0 = blockIdx.x * tile;
+  const int n = min(tile, n_rays - r0);
+  for (int i = threadIdx.x; i < slots; i += kScatterBlock) {
+    keys_s[i] = kEmpty;
+    vals_s[i] = 0.f;
+  }
+  for (int i = threadIdx.x; i <= n; i += kScatterBlock)
+    ptr_s[i] = __ldg(row_ptr + r0 + i);
+  for (int i = threadIdx.x; i < n; i += kScatterBlock)
+    dy_s[i] = __ldg(dy + r0 + i);
+  __syncthreads();
+  const unsigned mask = static_cast<unsigned>(slots) - 1u;
   const int lane = threadIdx.x & (kWarp - 1);
-  if (row >= n_rays) return;
-  const float g = __ldg(dy + row);
-  const int beg = __ldg(row_ptr + row);
-  const int end = __ldg(row_ptr + row + 1);
-  for (int k = beg + lane; k < end; k += kWarp)
-    atomicAdd(dD + __ldg(col + k), g * __ldg(val + k));
+  int n_over = 0;
+  for (int r = threadIdx.x / kWarp; r < n; r += kScatterWarps) {
+    const float g = dy_s[r];
+    const int end = ptr_s[r + 1];
+    for (int k0 = ptr_s[r] + lane; k0 < end; k0 += kScatterUnroll * kWarp) {
+      int c[kScatterUnroll];
+      float x[kScatterUnroll];
+#pragma unroll
+      for (int u = 0; u < kScatterUnroll; ++u) {
+        const int k = k0 + u * kWarp;
+        c[u] = k < end ? __ldg(col + k) : kEmpty;
+        x[u] = k < end ? __ldg(val + k) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kScatterUnroll; ++u) {
+        if (c[u] == kEmpty) break;
+        const float v = g * x[u];
+        if (!table_add(keys_s, vals_s, mask, c[u], v)) {
+          atomicAdd(dD + c[u], v);
+          ++n_over;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  int n_flush = 0;
+  for (int i = threadIdx.x; i < slots; i += kScatterBlock) {
+    const int key = keys_s[i];
+    if (key != kEmpty) {
+      atomicAdd(dD + key, vals_s[i]);
+      ++n_flush;
+    }
+  }
+  if (counts) {
+    int issued = n_flush + n_over;
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off >>= 1) {
+      issued += __shfl_down_sync(kFull, issued, off);
+      n_over += __shfl_down_sync(kFull, n_over, off);
+    }
+    if (lane == 0) {
+      atomicAdd(counts, issued);
+      atomicAdd(counts + 1, n_over);
+    }
+  }
 }
 
 unsigned blocks_for(int n_rows) {
@@ -135,17 +235,30 @@ int routed_bwd_gather(const void* vox_ptr, const void* ray,
   return static_cast<int>(cudaGetLastError());
 }
 
+// tile rays a CTA, slots (a power of two) in its table; counts (nullable,
+// int32 x 2, not zeroed here) gathers the global atomics issued and the
+// crossings that overflowed the table.
 int routed_bwd_scatter(const void* row_ptr, const void* col, const void* val,
-                       const void* dy, void* dD, int n_rays, int n_vox,
-                       void* stream) {
+                       const void* dy, void* dD, void* counts, int n_rays,
+                       int n_vox, int tile, int slots, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(dD, 0, sizeof(float) * n_vox, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_rays > 0)
-    routed_bwd_scatter_kernel<<<blocks_for(n_rays), kBlock, 0, s>>>(
-        static_cast<const int*>(row_ptr), static_cast<const int*>(col),
-        static_cast<const float*>(val), static_cast<const float*>(dy),
-        static_cast<float*>(dD), n_rays);
+  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  const size_t smem = sizeof(int) * (2 * static_cast<size_t>(slots)
+                                     + 2 * static_cast<size_t>(tile) + 1);
+  err = cudaFuncSetAttribute(routed_bwd_scatter_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  routed_bwd_scatter_kernel<<<
+      static_cast<unsigned>((static_cast<long long>(n_rays) + tile - 1) /
+                            tile),
+      kScatterBlock, smem, s>>>(
+      static_cast<const int*>(row_ptr), static_cast<const int*>(col),
+      static_cast<const float*>(val), static_cast<const float*>(dy),
+      static_cast<float*>(dD), static_cast<int*>(counts), n_rays, tile,
+      slots);
   return static_cast<int>(cudaGetLastError());
 }
 

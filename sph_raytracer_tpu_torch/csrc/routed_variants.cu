@@ -54,19 +54,34 @@
 //   window (low 16 bits), and one f32 length.  The forward runs one CTA per
 //   ray tile over its chunks in window order: it stages the window's slice
 //   of d in shared memory, sums each ray's run in the warp and adds it into
-//   a shared y tile, and writes the tile once.  The backward runs one CTA
-//   per window over its chunks in (window, tile) order (bwd_order): it
-//   stages the tile's dy slice, adds val*dy_s[ray] into a shared dD window,
-//   and writes the window once.  No global atomics; the shared atomics sum
-//   in a run-to-run order.  Tile (G rays) and window (W voxels) sizes come
-//   from the wrapper (ops/routed_project.py WIN_G = 1024, WIN_W = 256):
-//   at the flagship (250,000 rays, 125,000 voxels) 245 tiles and 489
-//   windows, so both kernels launch more CTAs than the card's 132 SMs.
-//   With that few CTAs an SM, a chunk of a few hundred crossings is too
-//   little work to hide its barrier and load latency: each CTA is kGroups
-//   groups that walk different chunks at once, each with its own staging
-//   buffer, so a CTA holds G + kGroups·W (forward) or W + kGroups·G
-//   (backward) floats of shared memory (12 KB / 33 KB).
+//   a shared y tile, and writes the tile once (no global atomics).  Tile
+//   (G rays) and window (W voxels) sizes come from the wrapper
+//   (ops/routed_project.py WIN_G = 1024, WIN_W = 256): at the flagship
+//   (250,000 rays, 125,000 voxels) 245 tiles, so the forward launches more
+//   CTAs than the card's 132 SMs.  With that few CTAs an SM, a chunk of a
+//   few hundred crossings is too little work to hide its barrier and load
+//   latency: each CTA is kGroups groups that walk different chunks at once,
+//   each with its own staging buffer, so a CTA holds G + kGroups·W floats
+//   of shared memory (12 KB).
+//   The backward was one CTA per window too, and three things held it at
+//   4x torch.mv's time (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+//   section 6): the hottest window holds 4x the mean window's
+//   crossings, and its CTA set the kernel's tail; each chunk staged its
+//   tile's whole dy slice (1,024 floats for a mean of 421 crossings: more
+//   bytes than the table); and the crossings of a chunk, sorted by ray,
+//   land ~3.8 to a voxel in the shared adds.  So it walks work items
+//   instead (built with the table: each window's chunks in bwd_order cut
+//   at chunk boundaries into runs of at most K crossings, K = WIN_K =
+//   4096), one CTA an item, the item's chunks laid end to end so that every
+//   thread takes one crossing a step whatever the chunk sizes; dy is read
+//   at each crossing through the read-only path (a chunk's rays lie in one
+//   4 KB tile slice, hot in L1 / L2), with no staging and no barrier a
+//   chunk; a window split into several items is flushed with one global
+//   atomic a voxel an item.  The balance is what moved its time; summing
+//   a warp's equal voxels before the shared add (__match_any_sync) cost
+//   more than the collisions it saved, so the shared adds stay plain
+//   (PERF.md section 6).  The shared and global atomics sum in a
+//   run-to-run order.
 // * routed_fwd_densew: the TPU kernel's idea is a window-major forward:
 //   each density window is fetched once (one DMA a superchunk), and the
 //   whole y stays resident in VMEM, accumulated across the sequential grid.
@@ -162,7 +177,8 @@ routed_fwd_hist_kernel(const int* __restrict__ row_ptr,
   for (int i = threadIdx.x; i < n; i += kBlock) y[r0 + i] = y_s[i];
 }
 
-// The window kernels: a CTA of kWinBlock threads is kGroups groups of
+// The window forwards (routed_fwd_window, routed_fwd_densew): a CTA of
+// kWinBlock threads is kGroups groups of
 // kGroupThreads, each walking its own share of the CTA's chunks (chunk
 // c, c + kGroups, ...) with its own staging buffer and its own named
 // barrier, so that several chunks' loads are in flight at once (one CTA a
@@ -233,55 +249,121 @@ routed_fwd_window_kernel(const int* __restrict__ tile_ptr,
   for (int i = threadIdx.x; i < nr; i += kWinBlock) y[r0 + i] = y_s[i];
 }
 
-// dD = A^T.dy over the same chunk table: one CTA per voxel window, its
-// chunks in tile order (bwd_order).  Shared memory: dD_s[W], then one
-// dy_s[G] a group.
-__global__ void __launch_bounds__(kWinBlock)
+// routed_bwd_window: one CTA of kItemBlock threads per work item of the
+// chunk table (item_ptr / item_win: a run of one window's chunks in
+// bwd_order of at most K crossings, or one larger chunk), kUnroll crossings
+// a thread a step.
+constexpr int kItemBlock = 256;
+constexpr int kItemWarps = kItemBlock / kWarp;
+
+// Exclusive prefix sum of n over the CTA's threads in thread order; total
+// gets the sum over all of them.  Every thread must call it; warp_s holds
+// kItemWarps ints.
+__device__ __forceinline__ int block_exclusive_sum(int n, int* warp_s,
+                                                   int& total) {
+  const int lane = threadIdx.x & (kWarp - 1), wid = threadIdx.x / kWarp;
+  int incl = n;
+#pragma unroll
+  for (int off = 1; off < kWarp; off <<= 1) {
+    const int o = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += o;
+  }
+  if (lane == kWarp - 1) warp_s[wid] = incl;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int i = 0; i < kItemWarps; ++i) {
+    const int s = warp_s[i];
+    if (i < wid) before += s;
+    total += s;
+  }
+  return before + incl - n;
+}
+
+// dD = A^T.dy over the same chunk table, one CTA per work item.  The
+// item's chunks are taken kItemBlock at a time: each thread loads one
+// chunk's first crossing and tile, a CTA prefix sum lays the chunks end to
+// end, and the CTA walks that concatenation kItemBlock crossings at a time
+// (each thread advancing its chunk as its position grows), reading dy at
+// each crossing's ray through the read-only path and adding val·dy into
+// the shared window dD_s[W].  The CTA then writes its window (the item is
+// the whole window) or adds it with one global atomic a voxel (the window
+// is split; the C entry zeroes dD).  Shared and global atomics sum in a
+// run-to-run order.
+__global__ void __launch_bounds__(kItemBlock)
 routed_bwd_window_kernel(const int* __restrict__ win_ptr,
+                         const int* __restrict__ item_ptr,
+                         const int* __restrict__ item_win,
                          const int* __restrict__ bwd_order,
                          const int* __restrict__ ckey,
                          const int* __restrict__ cptr,
                          const int* __restrict__ loc,
                          const float* __restrict__ val,
                          const float* __restrict__ dy,
-                         float* __restrict__ dD, int n_win, int n_rays,
-                         int n_vox, int G, int W) {
-  extern __shared__ float smem[];
-  const int g = threadIdx.x / kGroupThreads;
-  const int gt = threadIdx.x % kGroupThreads;
-  float* dD_s = smem;
-  float* dy_s = smem + W + g * G;
-  const int w = blockIdx.x;
+                         float* __restrict__ dD, int n_win, int n_vox, int G,
+                         int W) {
+  extern __shared__ float dD_s[];
+  __shared__ int beg_s[kItemBlock + 1];  // each chunk's start in the walk
+  __shared__ int src_s[kItemBlock];      // its first crossing
+  __shared__ int r0_s[kItemBlock];       // its tile's first ray
+  __shared__ int warp_s[kItemWarps];
+  const int tid = threadIdx.x;
+  const int w = __ldg(item_win + blockIdx.x);
+  const int j_beg = __ldg(item_ptr + blockIdx.x);
+  const int j_end = __ldg(item_ptr + blockIdx.x + 1);
   const int v0 = w * W;
   const int nv = min(W, n_vox - v0);
-  for (int i = threadIdx.x; i < nv; i += kWinBlock) dD_s[i] = 0.f;
-  __syncthreads();
-  const int j_end = __ldg(win_ptr + w + 1);
-  for (int j = __ldg(win_ptr + w) + g; j < j_end; j += kGroups) {
-    const int c = __ldg(bwd_order + j);
-    const int r0 = (__ldg(ckey + c) / n_win) * G;
-    const int nr = min(G, n_rays - r0);
-    group_sync(g);  // the group's previous chunk is done with dy_s
-    for (int i = gt; i < nr; i += kGroupThreads) dy_s[i] = __ldg(dy + r0 + i);
-    group_sync(g);
-    const int k_beg = __ldg(cptr + c), k_end = __ldg(cptr + c + 1);
-    for (int k0 = k_beg; k0 < k_end; k0 += kUnroll * kGroupThreads) {
+  for (int i = tid; i < nv; i += kItemBlock) dD_s[i] = 0.f;
+  for (int j0 = j_beg; j0 < j_end; j0 += kItemBlock) {
+    const int nc = min(kItemBlock, j_end - j0);
+    __syncthreads();  // the previous batch is done with the chunk lists
+    int n = 0;
+    if (tid < nc) {
+      const int c = __ldg(bwd_order + j0 + tid);
+      const int s = __ldg(cptr + c);
+      n = __ldg(cptr + c + 1) - s;
+      src_s[tid] = s;
+      r0_s[tid] = (__ldg(ckey + c) / n_win) * G;
+    }
+    int total;
+    const int beg = block_exclusive_sum(n, warp_s, total);
+    if (tid < nc) beg_s[tid] = beg;
+    if (tid == 0) beg_s[nc] = total;
+    __syncthreads();
+    int q = 0;  // this thread's chunk in the batch, advanced as f grows
+    for (int f0 = tid; f0 - tid < total; f0 += kUnroll * kItemBlock) {
       unsigned p[kUnroll];
       float x[kUnroll];
+      int r0[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        const int k = k0 + u * kGroupThreads + gt;
-        p[u] = k < k_end ? static_cast<unsigned>(__ldg(loc + k)) : 0u;
-        x[u] = k < k_end ? __ldg(val + k) : 0.f;
+        const int f = f0 + u * kItemBlock;
+        p[u] = 0u;
+        x[u] = 0.f;
+        r0[u] = -1;
+        if (f < total) {
+          while (beg_s[q + 1] <= f) ++q;
+          const int k = src_s[q] + (f - beg_s[q]);
+          p[u] = static_cast<unsigned>(__ldg(loc + k));
+          x[u] = __ldg(val + k);
+          r0[u] = r0_s[q];
+        }
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
-        if (k0 + u * kGroupThreads + gt < k_end)
-          atomicAdd(dD_s + (p[u] & 0xffffu), x[u] * dy_s[p[u] >> 16]);
+        if (r0[u] >= 0) x[u] *= __ldg(dy + r0[u] + (p[u] >> 16));
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (r0[u] >= 0) atomicAdd(dD_s + (p[u] & 0xffffu), x[u]);
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < nv; i += kWinBlock) dD[v0 + i] = dD_s[i];
+  if (j_beg == __ldg(win_ptr + w) && j_end == __ldg(win_ptr + w + 1)) {
+    for (int i = tid; i < nv; i += kItemBlock) dD[v0 + i] = dD_s[i];
+  } else {
+    for (int i = tid; i < nv; i += kItemBlock) atomicAdd(dD + v0 + i, dD_s[i]);
+  }
 }
 
 // y += A.d over the same chunk table, window-major: one CTA per voxel
@@ -383,19 +465,22 @@ int routed_fwd_window(const void* tile_ptr, const void* ckey,
   return static_cast<int>(cudaGetLastError());
 }
 
-int routed_bwd_window(const void* win_ptr, const void* bwd_order,
+int routed_bwd_window(const void* win_ptr, const void* item_ptr,
+                      const void* item_win, const void* bwd_order,
                       const void* ckey, const void* cptr, const void* loc,
                       const void* val, const void* dy, void* dD, int n_win,
-                      int n_rays, int n_vox, int G, int W, void* stream) {
-  if (n_vox > 0)
-    routed_bwd_window_kernel<<<n_win, kWinBlock,
-                               sizeof(float) * (W + kGroups * G),
-                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(win_ptr),
+                      int n_vox, int n_items, int G, int W, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(dD, 0, sizeof(float) * n_vox, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_items > 0)
+    routed_bwd_window_kernel<<<n_items, kItemBlock, sizeof(float) * W, s>>>(
+        static_cast<const int*>(win_ptr), static_cast<const int*>(item_ptr),
+        static_cast<const int*>(item_win),
         static_cast<const int*>(bwd_order), static_cast<const int*>(ckey),
         static_cast<const int*>(cptr), static_cast<const int*>(loc),
         static_cast<const float*>(val), static_cast<const float*>(dy),
-        static_cast<float*>(dD), n_win, n_rays, n_vox, G, W);
+        static_cast<float*>(dD), n_win, n_vox, G, W);
   return static_cast<int>(cudaGetLastError());
 }
 

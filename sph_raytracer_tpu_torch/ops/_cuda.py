@@ -42,11 +42,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {
     "routed_fwd": [_P, _P, _P, _P, _P, _I, _P],
     "routed_bwd_gather": [_P, _P, _P, _P, _P, _I, _P],
-    "routed_bwd_scatter": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "routed_bwd_scatter": [_P] * 6 + [_I] * 4 + [_P],
     "routed_fwd_dense": [_P, _P, _P, _P, _P, _I, _I, _P],
     "routed_fwd_hist": [_P, _P, _P, _P, _P, _I, _P],
     "routed_fwd_window": [_P] * 7 + [_I] * 5 + [_P],
-    "routed_bwd_window": [_P] * 8 + [_I] * 5 + [_P],
+    "routed_bwd_window": [_P] * 10 + [_I] * 5 + [_P],
     "routed_fwd_densew": [_P] * 8 + [_I] * 5 + [_P],
     "fused_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

@@ -22,7 +22,9 @@ bwd_only=True)``).
 The window-routed engine (``routed_banded=False``) reads one chunk table
 instead (:func:`build_window_tables`, :class:`WindowTables`): the live
 crossings grouped into (tile of :data:`WIN_G` rays, window of
-:data:`WIN_W` voxels) chunks, 8 B a crossing.
+:data:`WIN_W` voxels) chunks, 8 B a crossing, and the backward's work
+items (each window's chunks cut into runs of at most :data:`WIN_K`
+crossings, 8 B an item).
 
 Kernels (``csrc/routed_project.cu``, ``csrc/routed_variants.cu``), each
 beside its plain PyTorch version and a launch counter in :data:`LAUNCHES`
@@ -67,6 +69,10 @@ __all__ = [
     "WindowTables",
     "WIN_G",
     "WIN_W",
+    "WIN_K",
+    "SCATTER_TILE",
+    "SCATTER_SLOTS",
+    "scatter_atomics",
     "build_tables",
     "build_window_tables",
     "build_for",
@@ -169,14 +175,17 @@ def build_tables(lin, lens, n_vox: int, transpose: bool = True,
 
 
 # The window chunk table's tile and window sizes, chosen for the card: at
-# the flagship (250,000 rays, 125,000 voxels) the forward launches 245 CTAs
-# and the backward 489, more than the H100's 132 SMs, and a CTA's eight
-# chunk groups stage G + 8·W (forward) or W + 8·G (backward) floats of
-# shared memory (12 / 33 KB; csrc/routed_variants.cu).  The in-chunk
+# the flagship (250,000 rays, 125,000 voxels) the forward launches 245 CTAs,
+# more than the H100's 132 SMs, and a CTA's eight chunk groups stage G + 8·W
+# floats of shared memory (12 KB; csrc/routed_variants.cu).  The in-chunk
 # offsets are packed in 16 bits each (G <= 32768 keeps the packed word
 # non-negative).
 WIN_G = 1024
 WIN_W = 256
+# the backward's work item: at most this many crossings (a larger chunk is
+# an item of its own); the flagship's hottest window holds ~141,700
+# crossings and its largest chunk ~2,400 (tools/bwd_sweep.py times others)
+WIN_K = 4096
 
 
 class WindowTables(NamedTuple):
@@ -193,8 +202,13 @@ class WindowTables(NamedTuple):
     * ``tile_ptr`` (n_tiles+1,) the chunks of each tile (the forward's
       walk, windows ascending);
     * ``bwd_order`` (NC,) the chunks sorted by (window, tile) and
-      ``win_ptr`` (n_win+1,) each window's range in it (the backward's
-      walk)."""
+      ``win_ptr`` (n_win+1,) each window's range in it (the window-major
+      walk of ``routed_fwd_densew``);
+    * ``item_ptr`` (n_items+1,) the backward's work items as ranges of
+      ``bwd_order``, and ``item_win`` (n_items,) the window of each: every
+      non-empty window's range cut greedily at chunk boundaries into runs
+      of at most ``K`` crossings (a chunk of more is an item alone); an
+      empty window has no item."""
 
     loc: torch.Tensor
     val: torch.Tensor
@@ -203,10 +217,13 @@ class WindowTables(NamedTuple):
     tile_ptr: torch.Tensor
     bwd_order: torch.Tensor
     win_ptr: torch.Tensor
+    item_ptr: torch.Tensor
+    item_win: torch.Tensor
     n_rays: int
     n_vox: int
     G: int
     W: int
+    K: int
 
     @property
     def nnz(self) -> int:
@@ -221,23 +238,54 @@ class WindowTables(NamedTuple):
         return int(self.win_ptr.shape[0]) - 1
 
     @property
+    def n_items(self) -> int:
+        return int(self.item_ptr.shape[0]) - 1
+
+    @property
     def device(self) -> torch.device:
         return self.loc.device
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in self[:7])
+        return sum(t.numel() * t.element_size() for t in self[:9])
+
+
+def _work_items(n, win_ptr, K):
+    """The backward's work items over chunks of sizes ``n`` (in
+    ``bwd_order``) and windows ``win_ptr``: ``item_ptr``, the items' ranges
+    of ``bwd_order``.  Each window is cut greedily (an item takes chunks
+    while its crossings stay within ``K``, and at least one chunk); all
+    windows take their next item at once, so the loop runs as many times
+    as the busiest window has items."""
+    end_at = torch.cumsum(n.long(), 0)       # crossings up to each chunk's end
+    start_at = end_at - n.long()
+    wp = win_ptr.long()
+    keep = wp[1:] > wp[:-1]
+    j, j_end = wp[:-1][keep], wp[1:][keep]  # each open window's next item
+    starts = [j]
+    while j.numel():
+        nxt = torch.searchsorted(end_at, start_at[j] + K, right=True)
+        nxt = torch.minimum(torch.maximum(nxt, j + 1), j_end)
+        more = nxt < j_end
+        j, j_end = nxt[more], j_end[more]
+        starts.append(j)
+    starts = torch.sort(torch.cat(starts)).values
+    return torch.cat([starts, starts.new_full((1,), n.shape[0])]).to(
+        torch.int32)
 
 
 def build_window_tables(lin, lens, n_vox: int, G: int = WIN_G,
-                        W: int = WIN_W) -> WindowTables:
-    """Build the window chunk table from a traced (lin, lens) pair on its
-    device (zero-length slots dropped)."""
+                        W: int = WIN_W, K: int = WIN_K) -> WindowTables:
+    """Build the window chunk table, and the backward's work items of at
+    most ``K`` crossings, from a traced (lin, lens) pair on its device
+    (zero-length slots dropped)."""
     if not (0 < G <= 2 ** 15 and 0 < W <= 2 ** 16):
         raise ValueError(f"tile G={G} / window W={W} must fit 15 / 16 bits")
-    if 4 * max(G + 8 * W, W + 8 * G) > 48 * 1024:
-        raise ValueError(f"tile G={G} / window W={W}: the window kernels' "
+    if 4 * (G + 8 * W) > 48 * 1024:
+        raise ValueError(f"tile G={G} / window W={W}: the window forward's "
                          "shared memory would pass 48 KB")
+    if K < 1:
+        raise ValueError(f"work item size K={K} must be positive")
     R, live, counts, nnz = _live(lin, lens, n_vox)
     dev = lin.device
     n_tiles, n_win = -(-R // G), -(-n_vox // W)
@@ -261,9 +309,12 @@ def build_window_tables(lin, lens, n_vox: int, G: int = WIN_G,
         return out
 
     bwd_order = torch.sort(cwin * n_tiles + ctile).indices
+    win_ptr = ptr(cwin, n_win)
+    item_ptr = _work_items(per_chunk[bwd_order], win_ptr, K)
+    item_win = cwin[bwd_order][item_ptr[:-1].long()].to(torch.int32)
     return WindowTables(loc, val, cptr, ckey.to(torch.int32),
                         ptr(ctile, n_tiles), bwd_order.to(torch.int32),
-                        ptr(cwin, n_win), R, n_vox, G, W)
+                        win_ptr, item_ptr, item_win, R, n_vox, G, W, K)
 
 
 # ---------------------------------------------------------------------------
@@ -373,6 +424,24 @@ def _check(x, n, what, tables):
 # wrappers
 # ---------------------------------------------------------------------------
 
+# routed_bwd_scatter's CTA: a tile of SCATTER_TILE consecutive rays sums its
+# crossings by voxel in a shared table of SCATTER_SLOTS (key, value) slots
+# (a power of two; 64 KB) before one global atomic a distinct voxel.  At the
+# flagship a 128-ray tile crosses ~2,800 distinct voxels on average;
+# tools/bwd_sweep.py times other sizes.
+SCATTER_TILE = 128
+SCATTER_SLOTS = 8192
+
+
+def scatter_atomics(t: RoutedTables, tile: int = SCATTER_TILE) -> int:
+    """The global atomics ``routed_bwd_scatter`` issues when no crossing
+    overflows its table: one a distinct (tile of ``tile`` consecutive rays,
+    voxel) pair of the ray-major CSR (one a crossing, ``t.nnz``, before the
+    tiles)."""
+    rows = _row_ids(t.row_ptr, t.nnz)
+    return int(torch.unique((rows // tile) * t.n_vox + t.col.long()).numel())
+
+
 def routed_fwd(t: RoutedTables, d):
     """y (R,) = A·d for a flat (V,) density; kernel ``routed_fwd``."""
     if t.row_ptr is None:
@@ -400,16 +469,29 @@ def routed_bwd_gather(t: RoutedTables, dy):
     return dD
 
 
-def routed_bwd_scatter(t: RoutedTables, dy):
-    """dD (V,) = Aᵀ·dy by atomics; kernel ``routed_bwd_scatter``."""
+def routed_bwd_scatter(t: RoutedTables, dy, counts=None):
+    """dD (V,) = Aᵀ·dy over the ray-major CSR, summed by voxel in each
+    ray tile before its global atomics; kernel ``routed_bwd_scatter``.
+
+    ``counts``, an int32 CUDA tensor of shape (2,), gathers (adds to) the
+    global atomics the kernel issues and the crossings that overflowed its
+    tile's table; the plain version ignores it."""
     if t.row_ptr is None:
         raise ValueError("routed_bwd_scatter needs the ray-major CSR")
     if dy.device.type == "cpu":
         return routed_bwd_scatter_ref(t, dy)
+    if counts is not None and (counts.dtype != torch.int32
+                               or counts.shape != (2,)
+                               or not counts.is_contiguous()):
+        raise ValueError(f"counts must be a contiguous int32 tensor of "
+                         f"shape (2,), got {counts.dtype} "
+                         f"{tuple(counts.shape)}")
     dy = _check(dy, t.n_rays, "dy", t)
+    if counts is not None and counts.device != dy.device:
+        raise ValueError(f"counts on {counts.device}, dy on {dy.device}")
     dD = torch.empty(t.n_vox, dtype=torch.float32, device=dy.device)
-    launch("routed_bwd_scatter", (t.row_ptr, t.col, t.val, dy, dD),
-           (t.n_rays, t.n_vox))
+    launch("routed_bwd_scatter", (t.row_ptr, t.col, t.val, dy, dD, counts),
+           (t.n_rays, t.n_vox, SCATTER_TILE, SCATTER_SLOTS))
     return dD
 
 
@@ -454,15 +536,16 @@ def routed_fwd_window(t: WindowTables, d):
 
 
 def routed_bwd_window(t: WindowTables, dy):
-    """dD (V,) = Aᵀ·dy over the window chunk table; kernel
-    ``routed_bwd_window``."""
+    """dD (V,) = Aᵀ·dy over the window chunk table, one CTA a work item
+    (``t.item_ptr``); kernel ``routed_bwd_window``."""
     if dy.device.type == "cpu":
         return routed_bwd_window_ref(t, dy)
     dy = _check(dy, t.n_rays, "dy", t)
     dD = torch.empty(t.n_vox, dtype=torch.float32, device=dy.device)
     launch("routed_bwd_window",
-           (t.win_ptr, t.bwd_order, t.ckey, t.cptr, t.loc, t.val, dy, dD),
-           (t.n_win, t.n_rays, t.n_vox, t.G, t.W))
+           (t.win_ptr, t.item_ptr, t.item_win, t.bwd_order, t.ckey, t.cptr,
+            t.loc, t.val, dy, dD),
+           (t.n_win, t.n_vox, t.n_items, t.G, t.W))
     return dD
 
 

@@ -8,8 +8,10 @@ skips tests/conftest.py, which imports jax)::
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors (the fused kernel at every padded crossing count it is built for,
 and with the lerp; the routed variants on synthetic tables with empty
-rays, empty windows and a last tile of one ray), and one training step of
-each routed configuration and of fused mode on the card against the CPU.
+rays, empty windows and a last tile of one ray; the window backward on a
+window cut into several work items, the scatter backward on tiles that
+overflow its shared table), and one training step of each routed
+configuration and of fused mode on the card against the CPU.
 """
 import numpy as np
 import pytest
@@ -115,6 +117,67 @@ def test_variant_kernels_match_plain_versions(cuda, case):
         torch.testing.assert_close(
             got, want, rtol=1e-4,
             atol=1e-5 * max(float(want.abs().max()), 1e-30))
+
+
+def _adjoint_rel(fwd, bwd, t, gen, device):
+    x = torch.randn(t.n_vox, generator=gen).to(device)
+    y = torch.randn(t.n_rays, generator=gen).to(device)
+    lhs = float(torch.dot(fwd(t, x).double(), y.double()))
+    return abs(lhs - float(torch.dot(x.double(), bwd(t, y).double()))) \
+        / abs(lhs)
+
+
+@pytest.mark.parametrize("G,K", [(rp.WIN_G, rp.WIN_K), (64, 4000)])
+def test_window_backward_splits_a_hot_window(cuda, G, K):
+    """Window 0 holds ~48,000 crossings (voxels 0-255): it is cut into
+    several work items (chunks of 24,000 crossings alone, or two of 1,500
+    an item) whose partial windows meet in global atomics; window 1 (3,821
+    crossings) is one item and stores plainly.  Against the plain version
+    and the adjoint identity with routed_fwd_window."""
+    lin, lens = _synthetic(5, R=2049, V=600, M=40, vox=np.r_[0:256, 400:420])
+    lin, lens = lin.to(cuda), lens.to(cuda)
+    t = rp.build_window_tables(lin, lens, 600, G=G, K=K)
+    assert int((t.item_win == 0).sum()) > 1
+    assert int((t.item_win == 1).sum()) == 1
+    gen = torch.Generator().manual_seed(5)
+    dy = torch.randn(t.n_rays, generator=gen).to(cuda)
+    want = rp.routed_bwd_window_ref(t, dy)
+    got = rp.routed_bwd_window(t, dy)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-5 * float(want.abs().max()))
+    assert _adjoint_rel(rp.routed_fwd_window, rp.routed_bwd_window, t, gen,
+                        cuda) <= 1e-5
+
+
+def test_scatter_table_overflow(cuda):
+    """Tiles of 128 rays x 128 crossings on voxels drawn from 10^6: ~16,000
+    distinct voxels a tile, more than the 8,192 slots of its table, so
+    crossings overflow to global atomics; a second CSR with 300 voxels
+    overflows none and issues one atomic a (tile, voxel) pair."""
+    assert (rp.SCATTER_TILE, rp.SCATTER_SLOTS) == (128, 8192)
+    rng = np.random.default_rng(6)
+    R, M, V = 600, 128, 10 ** 6
+    gen = torch.Generator().manual_seed(6)
+    for nv, overflow in ((V, True), (300, False)):
+        lin = torch.tensor(rng.integers(0, nv, (R, M)), dtype=torch.int32)
+        lens = torch.tensor(rng.random((R, M)), dtype=torch.float32)
+        t = rp.build_tables(lin.to(cuda), lens.to(cuda), V, transpose=False)
+        dy = torch.randn(R, generator=gen).to(cuda)
+        counts = torch.zeros(2, dtype=torch.int32, device=cuda)
+        got = rp.routed_bwd_scatter(t, dy, counts=counts)
+        want = rp.routed_bwd_scatter_ref(t, dy)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-5 * float(want.abs().max()))
+        issued, over = counts.tolist()
+        pairs = rp.scatter_atomics(t)
+        if overflow:
+            assert over > 0 and pairs <= issued < t.nnz
+        else:
+            assert (issued, over) == (pairs, 0) and pairs < t.nnz
+        assert _adjoint_rel(rp.routed_fwd, rp.routed_bwd_scatter, t, gen,
+                            cuda) <= 1e-5
 
 
 ROUTED_CONFIGS = [dict(), dict(routed_dense="off"),

@@ -245,3 +245,130 @@ def test_new_wrappers_take_plain_version_only_on_cpu(traced):
             (rp.routed_bwd_window, rp.routed_bwd_window_ref, w, dy)):
         assert torch.equal(kern(tab, x), ref(tab, x))
     assert set(rp.LAUNCHES.values()) == {0}
+
+
+def _hot_window_table(K):
+    """A hand-made table with one hot window: 40 rays (5 tiles of 8) cross
+    voxels 0-31 (window 0) 12 times each, ray 39 also crosses voxel 70
+    (window 2); window 1 is empty."""
+    rng = np.random.default_rng(7)
+    lin = torch.tensor(rng.integers(0, 32, (40, 13)), dtype=torch.int32)
+    lin[:, 12] = 70
+    lens = torch.tensor(rng.random((40, 13)) + 0.1, dtype=torch.float32)
+    lens[:39, 12] = 0
+    return rp.build_window_tables(lin, lens, 96, G=8, W=32, K=K)
+
+
+def _windows(request, name, K):
+    if name == "hot":
+        return _hot_window_table(K)
+    lin, lens, V = request.getfixturevalue("traced")
+    return rp.build_window_tables(lin, lens, V, G=16, W=64, K=K)
+
+
+@pytest.mark.parametrize("name,K", [("traced", 1), ("traced", 100),
+                                    ("traced", 10 ** 6), ("hot", 40),
+                                    ("hot", 100)])
+def test_window_work_items(request, name, K):
+    """The backward's work items tile each non-empty window's range of
+    bwd_order in order, greedily: an item passes K only as a single chunk,
+    and stops short of K only where the next chunk would pass it or its
+    window ends; an empty window has none."""
+    t = _windows(request, name, K)
+    ip, iw, wp = t.item_ptr.long(), t.item_win.long(), t.win_ptr.long()
+    n = torch.diff(t.cptr).long()[t.bwd_order.long()]
+    cs = torch.cat([n.new_zeros(1), torch.cumsum(n, 0)])
+    size = cs[ip[1:]] - cs[ip[:-1]]
+    chunks = torch.diff(ip)
+    assert t.n_items == iw.numel() and int(ip[0]) == 0
+    assert int(ip[-1]) == len(t.ckey) and bool((chunks > 0).all())
+    # each window's items: consecutive, from its range's start to its end
+    assert bool((torch.diff(iw) >= 0).all())
+    for w in range(t.n_win):
+        items = torch.nonzero(iw == w).flatten()
+        if wp[w] == wp[w + 1]:
+            assert items.numel() == 0
+        else:
+            assert int(ip[items[0]]) == wp[w] and int(ip[items[-1] + 1]) \
+                == wp[w + 1]
+    assert bool(((size <= K) | (chunks == 1)).all())
+    ends_window = ip[1:] == wp[1:][iw]
+    nxt = n[ip[1:].clamp(max=n.numel() - 1)]
+    assert bool((ends_window | (size + nxt > K)).all())
+    if name == "hot":
+        assert t.n_win == 3 and int((iw == 0).sum()) > 1 and 1 not in iw
+    assert t.nbytes == sum(x.numel() * 4 for x in t[:9])
+
+
+def _item_walk(t, dy):
+    """dD by a plain walk over the work items: each item's chunks summed
+    into a window of its own, each window then added into dD."""
+    ray, vox = rp._window_ids(t)
+    order = t.bwd_order.long()
+    dD = torch.zeros(t.n_vox)
+    for i in range(t.n_items):
+        v0 = int(t.item_win[i]) * t.W
+        part = torch.zeros(t.W)
+        for c in order[int(t.item_ptr[i]):int(t.item_ptr[i + 1])].tolist():
+            k = slice(int(t.cptr[c]), int(t.cptr[c + 1]))
+            part.index_add_(0, vox[k] - v0, dy[ray[k]] * t.val[k])
+        nv = min(t.W, t.n_vox - v0)
+        dD[v0:v0 + nv] += part[:nv]
+    return dD
+
+
+@pytest.mark.parametrize("name,K", [("traced", 100), ("hot", 40)])
+def test_work_item_walk_matches_plain_version(request, name, K):
+    t = _windows(request, name, K)
+    dy = torch.tensor(np.random.default_rng(8).normal(size=t.n_rays),
+                      dtype=torch.float32)
+    want = rp.routed_bwd_window_ref(t, dy)
+    torch.testing.assert_close(_item_walk(t, dy), want, rtol=1e-6,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("rows,tile,pairs", [
+    # two rays of one tile share voxels 1 and 2: 3 pairs from 5 crossings
+    ([[1, 2], [2, 1, 3]], 2, 3),
+    # the same rays in tiles of one ray: a pair a crossing
+    ([[1, 2], [2, 1, 3]], 1, 5),
+    # an empty ray; ray 2 in the next tile repeats ray 0's voxels
+    ([[4, 4, 5], [], [4, 5]], 2, 4),
+])
+def test_scatter_atomics(rows, tile, pairs):
+    """The global atomics of routed_bwd_scatter without overflow: one a
+    distinct (tile, voxel) pair of the CSR."""
+    M = max(len(r) for r in rows)
+    lin = torch.zeros(len(rows), M, dtype=torch.int32)
+    lens = torch.zeros(len(rows), M)
+    for i, r in enumerate(rows):
+        lin[i, :len(r)] = torch.tensor(r)
+        lens[i, :len(r)] = 1.0
+    t = rp.build_tables(lin, lens, 8, transpose=False)
+    assert rp.scatter_atomics(t, tile) == pairs
+    assert t.nnz == sum(len(r) for r in rows)
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda t, w: rp.routed_bwd_scatter(
+        t, torch.ones(t.n_rays, device="meta"),
+        counts=torch.zeros(2, dtype=torch.int64, device="meta")),
+     "counts must be a contiguous int32"),
+    (lambda t, w: rp.routed_bwd_scatter(
+        t, torch.ones(t.n_rays, device="meta"),
+        counts=torch.zeros(3, dtype=torch.int32, device="meta")),
+     "counts must be a contiguous int32"),
+    (lambda t, w: rp.routed_bwd_window(
+        w, torch.ones(w.n_rays + 1, device="meta")), "must be float32"),
+    (lambda t, w: rp.build_window_tables(
+        torch.zeros(1, 1, dtype=torch.int32), torch.ones(1, 1), 4, K=0),
+     "K=0 must be positive"),
+])
+def test_redesigned_wrappers_reject_wrong_input(traced, call, match):
+    """What the two redesigned kernels do not take raises (a ``meta``
+    tensor stands in for one on the card)."""
+    lin, lens, V = traced
+    t = rp.build_tables(lin, lens, V, transpose=False)
+    w = rp.build_window_tables(lin, lens, V, G=16, W=64)
+    with pytest.raises(ValueError, match=match):
+        call(t, w)
