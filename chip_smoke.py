@@ -67,10 +67,26 @@ Phases (any failure raises and exits non-zero):
    ``tools.wfwd_probe.probe('vol100')`` (100³ grid, the flagship's views),
    counters reset just before and read just after, its setup seconds, and
    B8 there against its plain version and B1's image; B8's time beside its
-   plain version, its bound and ``torch.mv`` at the flagship.
+   plain version, its bound and ``torch.mv`` at the flagship;
+15. ``routed_w_dtype='bf16'`` on the flagship: for ``routed_dense``
+   'auto', 'off', 'both', 'fwd', ``routed_fwd_reduce='hist'`` and fused
+   mode, an f32 and a bf16 operator (setup seconds, table bytes and the
+   build's peak device memory of each); each ``<name>_bf16`` kernel
+   against its plain version on the bf16 tables, the bf16 image and
+   ``.T`` against the f32 operator's (rtol 2e-2, the largest relative
+   difference printed), the adjoint identity of each pair; ``retrieval.gd``
+   for 5 iterations through each, counters reset just before and read
+   just after (every bf16 entry of the pair launched, no f32 routed
+   kernel); each config's bf16 and f32 step in turns.  B8 on the flagship
+   chunk table in bf16, and its path ``tools.wfwd_probe.probe('vol100',
+   w_dtype='bf16')``;
+16. bf16 timings: each bf16 kernel beside its f32 kernel (same config, in
+   turns), its plain version, its bound and ``torch.mv`` on the CSR of
+   the widened weights (the same function; torch has no sparse mv of
+   bf16 weights by an f32 vector).
 
 Before the last line: the card's name and power limit, then the
-``{"kernels": [...]}`` line (9 kernels); the last line is
+``{"kernels": [...]}`` line (15 kernels: 9 f32, 6 bf16); the last line is
 ``{"ok": true, "device": {...}}``.  The run's wall seconds are printed
 before them.  Imports nothing of JAX.
 """
@@ -809,6 +825,227 @@ def main(argv):
     log(f"[kernel] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"library {lib_ms:.4f} ms, bound {max(byte_ms, op_ms):.4f} ms "
         f"({dw_bytes} bytes), {byte_ms / ms:.1%} of the bound")
+
+    # 15. routed_w_dtype='bf16' on the flagship -----------------------------
+    # each banded pair and fused mode's backward on bf16 tables, beside the
+    # same config in f32 built here
+    bf16_cfgs = {  # name -> (TraceConfig fields, forward, backward)
+        "auto": (dict(), rp.routed_fwd, rp.routed_bwd_gather),
+        "off": (dict(routed_dense="off"), rp.routed_fwd,
+                rp.routed_bwd_scatter),
+        "both": (dict(routed_dense="both"), rp.routed_fwd_dense,
+                 rp.routed_bwd_gather),
+        "fwd": (dict(routed_dense="fwd"), rp.routed_fwd_dense,
+                rp.routed_bwd_scatter),
+        "hist": (dict(routed_fwd_reduce="hist"), rp.routed_fwd_hist,
+                 rp.routed_bwd_gather),
+        "fused": (dict(mode="fused"), None, rp.routed_bwd_gather),
+    }
+    bf16 = torch.bfloat16
+
+    def build(cfg, w_dtype):
+        """An operator, its banded tables (fused: the backward's, built
+        now), its build seconds and the peak device memory of the build
+        above what was allocated before it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.time()
+        o = prt.Operator(grid, geom, config=prt.TraceConfig(
+            routed_w_dtype=w_dtype, **cfg))
+        t = o._ensure_fused_btd() if o._mode == "fused" else o._tables
+        torch.cuda.synchronize()
+        return (o, t, time.time() - t0,
+                torch.cuda.max_memory_allocated() - base)
+
+    def max_rel(got, want):
+        nz = want != 0
+        return float(((got - want).abs()[nz] / want.abs()[nz]).max())
+
+    t16s, t32s, errs16, launches16 = {}, {}, {}, {}
+    d3 = d.reshape(tuple(grid.shape))
+    for name, (cfg, fwd, bwd) in bf16_cfgs.items():
+        o32, t32, s32, p32 = build(cfg, "f32")
+        o16, t16, s16, p16 = build(cfg, "bf16")
+        kept = [x for x in (t16.val, t16.valT) if x is not None]
+        log(f"[bf16 {name}] setup {s32:.3f} s f32 / {s16:.3f} s bf16, "
+            f"table bytes {t32.nbytes} / {t16.nbytes}, build peak memory "
+            f"{p32} / {p16} B")
+        if (o16._w_dtype != bf16 or not kept
+                or any(x.dtype != bf16 for x in kept)
+                or (fwd is not None and (o16._fwd, o16._bwd) != (fwd, bwd))
+                or o16._bwd is not bwd):
+            raise AssertionError(f"bf16 {name}: not bf16 tables or another "
+                                 "kernel pair")
+        # each bf16 instantiation against its plain version on these tables
+        for kern, x in ((fwd, d), (bwd, dy)):
+            if kern is None:
+                continue
+            want = getattr(rp, f"{kern.__name__}_ref")(t16, x)
+            err = check_close(f"{kern.__name__}_bf16 ({name})", kern(t16, x),
+                              want, 1e-4, 1e-5 * float(want.abs().max()))
+            errs16.setdefault(f"{kern.__name__}_bf16", err)
+        # the images against the f32 operator's (d, dyp >= 0: every term of
+        # a sum moves by at most 2^-8 relative, the bf16 rounding)
+        with torch.no_grad():
+            y16, y32 = o16(d3).reshape(-1), o32(d3).reshape(-1)
+            b16, b32 = (o.T(dyp.reshape(tuple(geom.shape))).reshape(-1)
+                        for o in (o16, o32))
+        check_close(f"bf16 {name} image vs f32", y16, y32, 2e-2,
+                    1e-6 * float(y32.abs().max()))
+        check_close(f"bf16 {name} .T vs f32", b16, b32, 2e-2,
+                    1e-6 * float(b32.abs().max()))
+        log(f"[bf16 {name}] max relative difference from f32: image "
+            f"{max_rel(y16, y32):.3e}, .T {max_rel(b16, b32):.3e}")
+        # the adjoint identity: both directions read the same rounded
+        # lengths.  Fused: its forward traces f32 lengths, so with d, dyp
+        # >= 0 the two sums part by at most the bf16 rounding, 2^-8
+        # relative a length, beside phase 10's 1e-4 for its labels
+        lhs = float(torch.dot(y16.double(), dyp.double()))
+        rel = abs(lhs - float(torch.dot(d.double(), b16.double()))) / abs(lhs)
+        bound = 2.0 ** -8 + 1e-4 if name == "fused" else 1e-6
+        log(f"[check] adjoint <Ax,y>=<x,A'y> bf16 {name}: rel {rel:.3e} "
+            f"(at most {bound:g})")
+        if not rel <= bound:
+            raise AssertionError(f"bf16 {name}: adjoint identity fails")
+        # the path: gd through the bf16 instantiations, no f32 kernel
+        torch.cuda.synchronize()
+        rp.reset_launches()
+        t0 = time.time()
+        _, reproj16, losses16 = prt.retrieval.gd(
+            o16, y, model, num_iterations=5, progress_bar=False)
+        torch.cuda.synchronize()
+        launches16[name] = lv = dict(rp.LAUNCHES)
+        hist16 = next(iter(losses16.values()))
+        log(f"[bf16 {name} main] gd 5 iterations {time.time() - t0:.3f} s, "
+            f"loss {hist16[0]:.6g} -> {hist16[-1]:.6g}, launches "
+            f"{ {k: n for k, n in lv.items() if n} }")
+        want_k = [f"{bwd.__name__}_bf16"] + (
+            [f"{fwd.__name__}_bf16"] if fwd is not None else ["fused_fwd"])
+        f32_k = [k for k in rp.LAUNCHES if not k.endswith("_bf16")
+                 and k != "fused_fwd"]
+        if (any(lv[k] < 5 for k in want_k) or any(lv[k] for k in f32_k)
+                or not (len(hist16) == 5 and np.all(np.isfinite(hist16))
+                        and hist16[-1] < hist16[0]
+                        and bool(torch.isfinite(reproj16).all()))):
+            raise AssertionError(f"bf16 {name} main path missed a bf16 "
+                                 f"kernel or ran an f32 one: {lv}")
+        s32_ms = cuda_ms(make_step(o32, y), n=30, warm=5)
+        s16_ms = cuda_ms(make_step(o16, y), n=30, warm=5)
+        log(f"[bf16 {name} step] {s16_ms:.4f} ms/step bf16, {s32_ms:.4f} "
+            f"ms/step f32 (fwd+bwd, {R} rays, in turns in this call)")
+        t16s[name], t32s[name] = t16, t32
+        del o32, o16
+
+    # B8 on the flagship chunk table with each length rounded, as a bf16
+    # build makes it; its adjoint partner is B3's bf16 instantiation (same
+    # crossings, same rounded lengths, another table)
+    t_win16 = t_win._replace(val=t_win.val.to(bf16))
+    name = "routed_fwd_densew"
+    y_dw16 = rp.routed_fwd_densew(t_win16, d)
+    want = rp.routed_fwd_densew_ref(t_win16, d)
+    errs16[f"{name}_bf16"] = check_close(f"{name}_bf16", y_dw16, want, 1e-4,
+                                         1e-5 * float(want.abs().max()))
+    y_b1 = rp.routed_fwd(t16s["auto"], d)
+    check_close(f"{name}_bf16 image vs routed_fwd_bf16", y_dw16, y_b1, 1e-4,
+                1e-6 * float(y_b1.abs().max()))
+    lhs = float(torch.dot(y_dw16.double(), dyp.double()))
+    rhs = float(torch.dot(d.double(), rp.routed_bwd_scatter(
+        t16s["off"], dyp).double()))
+    log(f"[check] adjoint <Ax,y>=<x,A'y> {name}_bf16/routed_bwd_scatter_bf16"
+        f": rel {abs(lhs - rhs) / abs(lhs):.3e}")
+    if not abs(lhs - rhs) <= 1e-6 * abs(lhs):
+        raise AssertionError(f"adjoint identity fails for {name}_bf16")
+    torch.cuda.synchronize()
+    rp.reset_launches()
+    probe16 = wfwd_probe.probe("vol100", w_dtype="bf16")
+    torch.cuda.synchronize()
+    probe16_launches = dict(rp.LAUNCHES)
+    log(f"[probe vol100 bf16] setup {probe16['setup_s']:.3f} s; launches "
+        f"{ {k: n for k, n in probe16_launches.items() if n} }")
+    for r in probe16["kernels"]:
+        log(f"[probe vol100 bf16] {r['name']}: {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms (bytes), tables {r['table_bytes']} B, "
+            f"max diff vs routed_fwd {r['max_abs_diff_vs_routed_fwd']:.3e}")
+    pw, pd, py = probe16["win"], probe16["d"], probe16["y"]
+    if (pw.val.dtype != bf16 or probe16["csr"].val.dtype != bf16
+            or probe16_launches[f"{name}_bf16"] < 1
+            or probe16_launches["routed_fwd_bf16"] < 1
+            or probe16_launches["routed_fwd_window"] < 1
+            or probe16_launches[name] or probe16_launches["routed_fwd"]):
+        raise AssertionError(f"bf16 probe missed a kernel: "
+                             f"{probe16_launches}")
+    check_close(f"{name}_bf16 vol100", py[name],
+                rp.routed_fwd_densew_ref(pw, pd), 1e-4,
+                1e-5 * float(py[name].abs().max()))
+    check_close(f"{name}_bf16 vol100 image vs routed_fwd_bf16", py[name],
+                py["routed_fwd"], 1e-4,
+                1e-6 * float(py["routed_fwd"].abs().max()))
+    check_close("routed_fwd_window (f32) vol100 image vs routed_fwd_bf16",
+                py["routed_fwd_window"], py["routed_fwd"], 2e-2,
+                1e-6 * float(py["routed_fwd"].abs().max()))
+    del probe16, pw, pd, py
+
+    # 16. bf16 timings: each instantiation beside its f32 kernel on the
+    # f32 tables of the same config, its plain version, its bound and
+    # torch.mv on the CSR of the widened weights (the same function: torch
+    # has no sparse mv of bf16 weights by an f32 vector), in this call
+    timed16 = {  # bf16 entry -> (wrapper, bf16 table, f32 table, input)
+        "routed_fwd_bf16": (rp.routed_fwd, t16s["auto"], t32s["auto"], d),
+        "routed_bwd_gather_bf16": (rp.routed_bwd_gather, t16s["auto"],
+                                   t32s["auto"], dy),
+        "routed_bwd_scatter_bf16": (rp.routed_bwd_scatter, t16s["off"],
+                                    t32s["off"], dy),
+        "routed_fwd_dense_bf16": (rp.routed_fwd_dense, t16s["both"],
+                                  t32s["both"], d),
+        "routed_fwd_hist_bf16": (rp.routed_fwd_hist, t16s["hist"],
+                                 t32s["hist"], d),
+        "routed_fwd_densew_bf16": (rp.routed_fwd_densew, t_win16, t_win, d),
+    }
+    launch16 = {"routed_fwd_bf16": launches16["auto"],
+                "routed_bwd_gather_bf16": launches16["auto"],
+                "routed_bwd_scatter_bf16": launches16["off"],
+                "routed_fwd_dense_bf16": launches16["both"],
+                "routed_fwd_hist_bf16": launches16["hist"],
+                "routed_fwd_densew_bf16": probe16_launches}
+    t_auto16 = t16s["auto"]
+    A16 = torch.sparse_csr_tensor(t_auto16.row_ptr, t_auto16.col,
+                                  t_auto16.val.float(), size=(R, V),
+                                  check_invariants=False)
+    AT16 = torch.sparse_csr_tensor(t_auto16.vox_ptr, t_auto16.ray,
+                                   t_auto16.valT.float(), size=(V, R),
+                                   check_invariants=False)
+    for entry, (kern, t16, t32, x) in timed16.items():
+        ref = getattr(rp, f"{kern.__name__}_ref")
+        ms = cuda_ms(lambda: kern(t16, x))
+        f32_ms = cuda_ms(lambda: kern(t32, x))
+        plain_ms = cuda_ms(lambda: ref(t16, x))
+        mat = AT16 if "bwd" in entry else A16
+        lib_ms = cuda_ms(lambda: torch.mv(mat, x))
+        if isinstance(t16, rp.WindowTables):
+            reads = (t16.win_ptr, t16.bwd_order, t16.ckey, t16.cptr, t16.loc,
+                     t16.val)
+        elif kern in (rp.routed_fwd_dense, rp.routed_bwd_gather):
+            reads = (t16.vox_ptr, t16.ray, t16.valT)
+        else:
+            reads = (t16.row_ptr, t16.col, t16.val)
+        b16 = nbytes(*reads) + 4 * V + 4 * R
+        byte_ms = b16 / HBM_BYTES_PER_S * 1e3
+        op_ms = 2 * t16.nnz / F32_FLOPS * 1e3
+        kernels.append({
+            "name": entry, "route": "cuda",
+            "source": (VARIANTS_SOURCE if "dense" in entry
+                       or "hist" in entry else SOURCE),
+            "replaces": REPLACES[kern.__name__],
+            "launches": launch16[entry][entry], "max_abs_err": errs16[entry],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "library_ms": lib_ms})
+        log(f"[kernel] {entry}: {ms:.4f} ms (f32 {kern.__name__} {f32_ms:.4f}"
+            f" ms in turn), plain {plain_ms:.4f} ms, library (torch.mv, "
+            f"widened weights) {lib_ms:.4f} ms, bound "
+            f"{max(byte_ms, op_ms):.4f} ms ({b16} bytes), "
+            f"{byte_ms / ms:.1%} of the bound")
 
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile

@@ -2,13 +2,14 @@
 
 ``TraceConfig`` keeps every field name of ``sph_raytracer_tpu.config``
 (config.py:20-183) so code written against one package runs on the other;
-dtypes are torch dtypes.  Fields fall in three groups:
+dtypes are torch dtypes.  Every value the JAX package accepts runs here.
+Fields fall in two groups:
 
 * **Used:** ``ftype``, ``itype``, ``mode``, ``precompute_block_rays``,
-  ``block_rays`` (the blockwise fused path), ``trace_method``
-  ('auto'/'sorted'), ``routed_dense``, ``routed_banded``,
-  ``routed_fwd_reduce``, ``routed_w_dtype`` ('f32'), ``fused_backend``,
-  ``fused_bwd``.  In routed mode the last three routed fields pick a
+  ``block_rays`` (the blockwise fused path), ``trace_method``,
+  ``routed_dense``, ``routed_banded``, ``routed_fwd_reduce``,
+  ``routed_w_dtype``, ``fused_backend``, ``fused_bwd``.  In routed mode
+  ``routed_dense``, ``routed_banded`` and ``routed_fwd_reduce`` pick a
   (forward, backward) pair of kernels (``ops.routed_project.resolve``):
 
   ====================================== ===================== ===================
@@ -38,10 +39,6 @@ dtypes are torch dtypes.  Fields fall in three groups:
   mode runs its Pallas kernels on the CPU.  The TPU's VMEM-envelope clamps
   and the dense-slot rep-skew gate of ``routed_dense`` have no counterpart
   on the card either: a forced value always runs its kernel.
-* **Not ported yet** — ``routed_w_dtype='bf16'`` and
-  ``trace_method='ranked'`` raise ``NotImplementedError`` naming the
-  ROADMAP item (see :func:`check_supported`); they never silently run
-  another kernel.
 """
 from __future__ import annotations
 
@@ -71,7 +68,12 @@ class TraceConfig:
             and 'precomputed' on the CPU.
         precompute_block_rays: rays per block of the crossing trace (bounds
             the peak memory of its dense (block, M) temporaries).
-        trace_method: 'sorted' (or 'auto', which means 'sorted' here).
+        trace_method: 'auto', 'sorted' or 'ranked', all three the sorted
+            trace (``ops.trace.trace_crossings``).  The JAX package's
+            'ranked' trace trades the sort, slow on a TPU, for all-pairs
+            comparisons (O(block·M²) temporaries) and yields the same
+            (voxel, length) pairs; the sort is fast on the card, so the
+            port keeps one trace.
         routed_dense: dense-slot choice of the routed engine (module
             docstring's table): the gather backward (``routed_bwd_gather``,
             deterministic) for 'auto'/'bwd'/'both', the atomic scatter
@@ -84,6 +86,27 @@ class TraceConfig:
         routed_fwd_reduce: 'hist' runs the ray-tile reduce forward
             (``routed_fwd_hist``); needs ``routed_band_rows=8``, as in the
             JAX package.
+        routed_w_dtype: 'f32', or 'bf16': the banded engine's weight
+            tables (``val`` / ``valT``: routed mode with
+            ``routed_banded=True``, and fused mode's routed backward,
+            whose tables are banded whatever ``routed_banded`` is) hold
+            each float32 length rounded to nearest even in bfloat16, and
+            its kernels read them through their ``<name>_bf16``
+            instantiations (f32 accumulation).  2 B a crossing less per
+            table; the image moves by the rounding (≤ 2⁻⁸ relative a
+            length), and both directions read the same rounded lengths, so
+            the pair stays exactly adjoint.  Where no banded table is
+            built (``mode='precomputed'``, routed mode with
+            ``routed_banded=False``, fused mode whose backward re-traces)
+            it warns and keeps f32, as the JAX package does.  (The JAX
+            package also warns in fused mode with ``routed_banded=False``,
+            yet quantizes that backward's banded tables all the same, as
+            the port does without the warning.)  The JAX package also
+            keeps f32 when its
+            superchunk heights are not multiples of 16 rows (TPU bf16
+            tiling), as in tiny configs; the port has no superchunks and
+            quantizes on every banded build, so on such configs the two
+            packages differ by that rounding.
         block_rays: rays per block of the blockwise fused path.
         fused_backend: fused-mode engine: 'pallas' (the JAX name, kept)
             is the in-kernel-trace engine (``fused_fwd``; ValueError for a
@@ -132,12 +155,6 @@ def default_config() -> TraceConfig:
     return TraceConfig()
 
 
-# (field, value) -> the ROADMAP item that ports its kernel
-_NOT_PORTED = {
-    ("routed_w_dtype", "bf16"): "ROADMAP B1-B3 follow-up (bf16 weight tables)",
-    ("trace_method", "ranked"): "ROADMAP A2 (trace_crossings_ranked)",
-}
-
 _VALID = {
     "mode": ("auto", "precomputed", "routed", "fused"),
     "trace_method": ("auto", "sorted", "ranked"),
@@ -151,9 +168,7 @@ _VALID = {
 
 
 def check_supported(config: TraceConfig) -> None:
-    """Raise ``ValueError`` for an unknown value or combination and
-    ``NotImplementedError`` for a value whose kernel this port does not
-    have yet."""
+    """Raise ``ValueError`` for an unknown value or combination."""
     for field, allowed in _VALID.items():
         if getattr(config, field) not in allowed:
             raise ValueError(f"{field}={getattr(config, field)!r} "
@@ -163,8 +178,3 @@ def check_supported(config: TraceConfig) -> None:
     if config.routed_fwd_reduce == "hist" and config.routed_band_rows != 8:
         raise ValueError("routed_fwd_reduce='hist' needs routed_band_rows=8 "
                          "(the placement gathers address within 8-row bands)")
-    for (field, value), item in _NOT_PORTED.items():
-        if getattr(config, field) == value:
-            raise NotImplementedError(
-                f"TraceConfig({field}={value!r}) is not ported to the "
-                f"PyTorch/CUDA package yet: {item}")

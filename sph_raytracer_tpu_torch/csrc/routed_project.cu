@@ -21,7 +21,8 @@
 // lanes; an SM gathers from global memory directly, so none of it is kept.
 //
 // What bounds them on this card: bytes.  Each pass streams 8 B of table per
-// live crossing (a 4 B index and a 4 B length) plus the row pointers, and
+// live crossing (a 4 B index and a 4 B length; 6 B with bf16 lengths) plus
+// the row pointers, and
 // does 2 flops per crossing (~0.25 flop/B, far below the H100's ~20 flop/B
 // f32 balance point).  The gathered vector (the density or dy, at most a
 // few MB) stays resident in the 50 MB L2, so its random reads cost L2, not
@@ -46,8 +47,16 @@
 // right; the optional counts (int32 x 2) gather the global atomics issued
 // and those overflowed crossings.  On the card the shared-table work, not
 // the global atomics, now sets its time (PERF.md section 6).
+//
+// Each kernel is a template on its weight type Weight: float, or
+// __nv_bfloat16 for routed_w_dtype='bf16' (the C entries <name>_bf16),
+// whose tables store 2 B a length instead of 4.  The weight is widened to
+// f32 at its load (load_w, weight.cuh); the arithmetic and the order of
+// the sums do not change with the type.
 
 #include <cuda_runtime.h>
+
+#include "weight.cuh"
 
 namespace {
 
@@ -58,9 +67,10 @@ constexpr unsigned kFull = 0xffffffffu;
 // out[r] = sum over k in [ptr[r], ptr[r+1]) of x[idx[k]] * w[k].
 // One warp per row; the whole warp leaves together, so the full-mask
 // shuffle below always has 32 active lanes.
+template <typename Weight>
 __device__ __forceinline__ void csr_row_dot(
     const int* __restrict__ ptr, const int* __restrict__ idx,
-    const float* __restrict__ w, const float* __restrict__ x,
+    const Weight* __restrict__ w, const float* __restrict__ x,
     float* __restrict__ out, int n_rows) {
   const long long row =
       (static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x) / kWarp;
@@ -70,7 +80,7 @@ __device__ __forceinline__ void csr_row_dot(
   const int end = __ldg(ptr + row + 1);
   float acc = 0.f;
   for (int k = beg + lane; k < end; k += kWarp)
-    acc = fmaf(__ldg(x + __ldg(idx + k)), __ldg(w + k), acc);
+    acc = fmaf(__ldg(x + __ldg(idx + k)), load_w(w + k), acc);
 #pragma unroll
   for (int off = kWarp / 2; off > 0; off >>= 1)
     acc += __shfl_down_sync(kFull, acc, off);
@@ -78,10 +88,11 @@ __device__ __forceinline__ void csr_row_dot(
 }
 
 // y = A.d over the ray-major CSR (one warp per ray).
+template <typename Weight>
 __global__ void __launch_bounds__(kBlock)
 routed_fwd_kernel(const int* __restrict__ row_ptr,
                   const int* __restrict__ col,
-                  const float* __restrict__ val,
+                  const Weight* __restrict__ val,
                   const float* __restrict__ d, float* __restrict__ y,
                   int n_rays) {
   csr_row_dot(row_ptr, col, val, d, y, n_rays);
@@ -89,10 +100,11 @@ routed_fwd_kernel(const int* __restrict__ row_ptr,
 
 // dD = A^T.dy over the voxel-major CSR (one warp per voxel): every output
 // is written once by one warp, in a fixed order — deterministic.
+template <typename Weight>
 __global__ void __launch_bounds__(kBlock)
 routed_bwd_gather_kernel(const int* __restrict__ vox_ptr,
                          const int* __restrict__ ray,
-                         const float* __restrict__ valT,
+                         const Weight* __restrict__ valT,
                          const float* __restrict__ dy,
                          float* __restrict__ dD, int n_vox) {
   csr_row_dot(vox_ptr, ray, valT, dy, dD, n_vox);
@@ -129,10 +141,11 @@ __device__ __forceinline__ bool table_add(int* keys_s, float* vals_s,
 // warp, warp + kScatterWarps, ...), its lanes striding the ray's
 // crossings (coalesced), dy[r] one shared read a ray.  The atomics (shared
 // and global) sum in a run-to-run order.
+template <typename Weight>
 __global__ void __launch_bounds__(kScatterBlock)
 routed_bwd_scatter_kernel(const int* __restrict__ row_ptr,
                           const int* __restrict__ col,
-                          const float* __restrict__ val,
+                          const Weight* __restrict__ val,
                           const float* __restrict__ dy,
                           float* __restrict__ dD, int* __restrict__ counts,
                           int n_rays, int tile, int slots) {
@@ -165,7 +178,7 @@ routed_bwd_scatter_kernel(const int* __restrict__ row_ptr,
       for (int u = 0; u < kScatterUnroll; ++u) {
         const int k = k0 + u * kWarp;
         c[u] = k < end ? __ldg(col + k) : kEmpty;
-        x[u] = k < end ? __ldg(val + k) : 0.f;
+        x[u] = k < end ? load_w(val + k) : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < kScatterUnroll; ++u) {
@@ -206,31 +219,28 @@ unsigned blocks_for(int n_rows) {
       (static_cast<long long>(n_rows) * kWarp + kBlock - 1) / kBlock);
 }
 
-}  // namespace
-
-// C interface: device pointers and the stream as void*, sizes as int.
-// Each entry returns cudaGetLastError() right after its launch (0 = ok).
-extern "C" {
-
-int routed_fwd(const void* row_ptr, const void* col, const void* val,
+// The launches behind the C entries, one instantiation a weight type.
+// Each returns cudaGetLastError() right after its launch (0 = ok).
+template <typename Weight>
+int launch_fwd(const void* row_ptr, const void* col, const void* val,
                const void* d, void* y, int n_rays, void* stream) {
   if (n_rays > 0)
-    routed_fwd_kernel<<<blocks_for(n_rays), kBlock, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+    routed_fwd_kernel<Weight><<<blocks_for(n_rays), kBlock, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(row_ptr), static_cast<const int*>(col),
-        static_cast<const float*>(val), static_cast<const float*>(d),
+        static_cast<const Weight*>(val), static_cast<const float*>(d),
         static_cast<float*>(y), n_rays);
   return static_cast<int>(cudaGetLastError());
 }
 
-int routed_bwd_gather(const void* vox_ptr, const void* ray,
-                      const void* valT, const void* dy, void* dD, int n_vox,
-                      void* stream) {
+template <typename Weight>
+int launch_bwd_gather(const void* vox_ptr, const void* ray, const void* valT,
+                      const void* dy, void* dD, int n_vox, void* stream) {
   if (n_vox > 0)
-    routed_bwd_gather_kernel<<<blocks_for(n_vox), kBlock, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+    routed_bwd_gather_kernel<Weight><<<blocks_for(n_vox), kBlock, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(vox_ptr), static_cast<const int*>(ray),
-        static_cast<const float*>(valT), static_cast<const float*>(dy),
+        static_cast<const Weight*>(valT), static_cast<const float*>(dy),
         static_cast<float*>(dD), n_vox);
   return static_cast<int>(cudaGetLastError());
 }
@@ -238,7 +248,8 @@ int routed_bwd_gather(const void* vox_ptr, const void* ray,
 // tile rays a CTA, slots (a power of two) in its table; counts (nullable,
 // int32 x 2, not zeroed here) gathers the global atomics issued and the
 // crossings that overflowed the table.
-int routed_bwd_scatter(const void* row_ptr, const void* col, const void* val,
+template <typename Weight>
+int launch_bwd_scatter(const void* row_ptr, const void* col, const void* val,
                        const void* dy, void* dD, void* counts, int n_rays,
                        int n_vox, int tile, int slots, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -247,19 +258,65 @@ int routed_bwd_scatter(const void* row_ptr, const void* col, const void* val,
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
   const size_t smem = sizeof(int) * (2 * static_cast<size_t>(slots)
                                      + 2 * static_cast<size_t>(tile) + 1);
-  err = cudaFuncSetAttribute(routed_bwd_scatter_kernel,
+  err = cudaFuncSetAttribute(routed_bwd_scatter_kernel<Weight>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  routed_bwd_scatter_kernel<<<
+  routed_bwd_scatter_kernel<Weight><<<
       static_cast<unsigned>((static_cast<long long>(n_rays) + tile - 1) /
                             tile),
       kScatterBlock, smem, s>>>(
       static_cast<const int*>(row_ptr), static_cast<const int*>(col),
-      static_cast<const float*>(val), static_cast<const float*>(dy),
+      static_cast<const Weight*>(val), static_cast<const float*>(dy),
       static_cast<float*>(dD), static_cast<int*>(counts), n_rays, tile,
       slots);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C interface: device pointers and the stream as void*, sizes as int.
+// <name> reads float32 weights, <name>_bf16 bfloat16 ones.
+extern "C" {
+
+int routed_fwd(const void* row_ptr, const void* col, const void* val,
+               const void* d, void* y, int n_rays, void* stream) {
+  return launch_fwd<float>(row_ptr, col, val, d, y, n_rays, stream);
+}
+
+int routed_fwd_bf16(const void* row_ptr, const void* col, const void* val,
+                    const void* d, void* y, int n_rays, void* stream) {
+  return launch_fwd<__nv_bfloat16>(row_ptr, col, val, d, y, n_rays, stream);
+}
+
+int routed_bwd_gather(const void* vox_ptr, const void* ray,
+                      const void* valT, const void* dy, void* dD, int n_vox,
+                      void* stream) {
+  return launch_bwd_gather<float>(vox_ptr, ray, valT, dy, dD, n_vox,
+                                  stream);
+}
+
+int routed_bwd_gather_bf16(const void* vox_ptr, const void* ray,
+                           const void* valT, const void* dy, void* dD,
+                           int n_vox, void* stream) {
+  return launch_bwd_gather<__nv_bfloat16>(vox_ptr, ray, valT, dy, dD, n_vox,
+                                          stream);
+}
+
+int routed_bwd_scatter(const void* row_ptr, const void* col, const void* val,
+                       const void* dy, void* dD, void* counts, int n_rays,
+                       int n_vox, int tile, int slots, void* stream) {
+  return launch_bwd_scatter<float>(row_ptr, col, val, dy, dD, counts,
+                                   n_rays, n_vox, tile, slots, stream);
+}
+
+int routed_bwd_scatter_bf16(const void* row_ptr, const void* col,
+                            const void* val, const void* dy, void* dD,
+                            void* counts, int n_rays, int n_vox, int tile,
+                            int slots, void* stream) {
+  return launch_bwd_scatter<__nv_bfloat16>(row_ptr, col, val, dy, dD, counts,
+                                           n_rays, n_vox, tile, slots,
+                                           stream);
 }
 
 const char* routed_error_string(int code) {

@@ -97,8 +97,17 @@
 //   (ray, chunk, 32-crossing slice) run instead of B5's one per crossing.
 //   The atomics sum in a run-to-run order; the hottest window's CTA holds
 //   about 4x the mean window's crossings at the flagship.
+//
+// routed_fwd_dense, routed_fwd_hist and routed_fwd_densew are templates on
+// their weight type Weight, as routed_project.cu's kernels are: float, or
+// __nv_bfloat16 for routed_w_dtype='bf16' (the C entries <name>_bf16),
+// widened to f32 at the load (load_w, weight.cuh).  The window engine's
+// pair takes float32 weights only: the JAX package never runs it on bf16
+// tables (routed_w_dtype applies to the banded engine alone).
 
 #include <cuda_runtime.h>
+
+#include "weight.cuh"
 
 namespace {
 
@@ -108,10 +117,11 @@ constexpr int kHistTile = 256;  // rays per CTA of routed_fwd_hist
 constexpr unsigned kFull = 0xffffffffu;
 
 // y += A.d over the voxel-major transpose: one warp per voxel.
+template <typename Weight>
 __global__ void __launch_bounds__(kBlock)
 routed_fwd_dense_kernel(const int* __restrict__ vox_ptr,
                         const int* __restrict__ ray,
-                        const float* __restrict__ valT,
+                        const Weight* __restrict__ valT,
                         const float* __restrict__ d, float* __restrict__ y,
                         int n_vox) {
   const long long v =
@@ -123,7 +133,7 @@ routed_fwd_dense_kernel(const int* __restrict__ vox_ptr,
   if (beg == end) return;
   const float dv = __ldg(d + v);
   for (int k = beg + lane; k < end; k += kWarp)
-    atomicAdd(y + __ldg(ray + k), __ldg(valT + k) * dv);
+    atomicAdd(y + __ldg(ray + k), load_w(valT + k) * dv);
 }
 
 // Inclusive sum of x over the lanes of this warp that hold the same key,
@@ -147,10 +157,11 @@ __device__ __forceinline__ bool warp_run_sum(int key, float& x) {
 // thread advances its ray through the tile's row pointers (kept in shared
 // memory), a warp sums each ray's run in registers (warp_run_sum), and the
 // run's last lane adds the total into the shared y tile.
+template <typename Weight>
 __global__ void __launch_bounds__(kBlock)
 routed_fwd_hist_kernel(const int* __restrict__ row_ptr,
                        const int* __restrict__ col,
-                       const float* __restrict__ val,
+                       const Weight* __restrict__ val,
                        const float* __restrict__ d, float* __restrict__ y,
                        int n_rays) {
   __shared__ float y_s[kHistTile];
@@ -169,7 +180,7 @@ routed_fwd_hist_kernel(const int* __restrict__ row_ptr,
     if (k < end) {
       while (ptr_s[r + 1] <= k) ++r;
       key = r;
-      x = __ldg(d + __ldg(col + k)) * __ldg(val + k);
+      x = __ldg(d + __ldg(col + k)) * load_w(val + k);
     }
     if (warp_run_sum(key, x)) atomicAdd(y_s + key, x);
   }
@@ -370,13 +381,14 @@ routed_bwd_window_kernel(const int* __restrict__ win_ptr,
 // window, its chunks in tile order (bwd_order).  Shared memory: d_s[W],
 // staged once.  Each ray's run is summed in the warp and added into the
 // global y.
+template <typename Weight>
 __global__ void __launch_bounds__(kWinBlock)
 routed_fwd_densew_kernel(const int* __restrict__ win_ptr,
                          const int* __restrict__ bwd_order,
                          const int* __restrict__ ckey,
                          const int* __restrict__ cptr,
                          const int* __restrict__ loc,
-                         const float* __restrict__ val,
+                         const Weight* __restrict__ val,
                          const float* __restrict__ d, float* __restrict__ y,
                          int n_win, int n_vox, int G, int W) {
   extern __shared__ float d_s[];
@@ -401,7 +413,7 @@ routed_fwd_densew_kernel(const int* __restrict__ win_ptr,
       for (int u = 0; u < kUnroll; ++u) {
         const int k = k0 + u * kGroupThreads + gt;
         p[u] = k < k_end ? static_cast<unsigned>(__ldg(loc + k)) : 0u;
-        v[u] = k < k_end ? __ldg(val + k) : 0.f;
+        v[u] = k < k_end ? load_w(val + k) : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -418,36 +430,85 @@ unsigned cdiv(long long n, long long m) {
   return static_cast<unsigned>((n + m - 1) / m);
 }
 
-}  // namespace
-
-// C interface: device pointers and the stream as void*, sizes as int.
-// Each entry returns cudaGetLastError() right after its launch (0 = ok).
-extern "C" {
-
-int routed_fwd_dense(const void* vox_ptr, const void* ray, const void* valT,
+// The launches behind the weight-templated C entries, one instantiation a
+// weight type.  Each returns cudaGetLastError() right after its launch.
+template <typename Weight>
+int launch_fwd_dense(const void* vox_ptr, const void* ray, const void* valT,
                      const void* d, void* y, int n_vox, int n_rays,
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(y, 0, sizeof(float) * n_rays, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_vox > 0)
-    routed_fwd_dense_kernel<<<cdiv(static_cast<long long>(n_vox) * kWarp,
-                                   kBlock), kBlock, 0, s>>>(
+    routed_fwd_dense_kernel<Weight><<<cdiv(static_cast<long long>(n_vox) * kWarp,
+                                      kBlock), kBlock, 0, s>>>(
         static_cast<const int*>(vox_ptr), static_cast<const int*>(ray),
-        static_cast<const float*>(valT), static_cast<const float*>(d),
+        static_cast<const Weight*>(valT), static_cast<const float*>(d),
         static_cast<float*>(y), n_vox);
   return static_cast<int>(cudaGetLastError());
 }
 
-int routed_fwd_hist(const void* row_ptr, const void* col, const void* val,
+template <typename Weight>
+int launch_fwd_hist(const void* row_ptr, const void* col, const void* val,
                     const void* d, void* y, int n_rays, void* stream) {
   if (n_rays > 0)
-    routed_fwd_hist_kernel<<<cdiv(n_rays, kHistTile), kBlock, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+    routed_fwd_hist_kernel<Weight><<<cdiv(n_rays, kHistTile), kBlock, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(row_ptr), static_cast<const int*>(col),
-        static_cast<const float*>(val), static_cast<const float*>(d),
+        static_cast<const Weight*>(val), static_cast<const float*>(d),
         static_cast<float*>(y), n_rays);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Weight>
+int launch_fwd_densew(const void* win_ptr, const void* bwd_order,
+                      const void* ckey, const void* cptr, const void* loc,
+                      const void* val, const void* d, void* y, int n_win,
+                      int n_rays, int n_vox, int G, int W, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(y, 0, sizeof(float) * n_rays, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_win > 0)
+    routed_fwd_densew_kernel<Weight><<<n_win, kWinBlock, sizeof(float) * W, s>>>(
+        static_cast<const int*>(win_ptr),
+        static_cast<const int*>(bwd_order), static_cast<const int*>(ckey),
+        static_cast<const int*>(cptr), static_cast<const int*>(loc),
+        static_cast<const Weight*>(val), static_cast<const float*>(d),
+        static_cast<float*>(y), n_win, n_vox, G, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C interface: device pointers and the stream as void*, sizes as int.
+// Each entry returns cudaGetLastError() right after its launch (0 = ok);
+// <name> reads float32 weights, <name>_bf16 bfloat16 ones.
+extern "C" {
+
+int routed_fwd_dense(const void* vox_ptr, const void* ray, const void* valT,
+                     const void* d, void* y, int n_vox, int n_rays,
+                     void* stream) {
+  return launch_fwd_dense<float>(vox_ptr, ray, valT, d, y, n_vox, n_rays,
+                                 stream);
+}
+
+int routed_fwd_dense_bf16(const void* vox_ptr, const void* ray,
+                          const void* valT, const void* d, void* y,
+                          int n_vox, int n_rays, void* stream) {
+  return launch_fwd_dense<__nv_bfloat16>(vox_ptr, ray, valT, d, y, n_vox,
+                                         n_rays, stream);
+}
+
+int routed_fwd_hist(const void* row_ptr, const void* col, const void* val,
+                    const void* d, void* y, int n_rays, void* stream) {
+  return launch_fwd_hist<float>(row_ptr, col, val, d, y, n_rays, stream);
+}
+
+int routed_fwd_hist_bf16(const void* row_ptr, const void* col,
+                         const void* val, const void* d, void* y, int n_rays,
+                         void* stream) {
+  return launch_fwd_hist<__nv_bfloat16>(row_ptr, col, val, d, y, n_rays,
+                                        stream);
 }
 
 int routed_fwd_window(const void* tile_ptr, const void* ckey,
@@ -488,17 +549,18 @@ int routed_fwd_densew(const void* win_ptr, const void* bwd_order,
                       const void* ckey, const void* cptr, const void* loc,
                       const void* val, const void* d, void* y, int n_win,
                       int n_rays, int n_vox, int G, int W, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(y, 0, sizeof(float) * n_rays, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_win > 0)
-    routed_fwd_densew_kernel<<<n_win, kWinBlock, sizeof(float) * W, s>>>(
-        static_cast<const int*>(win_ptr),
-        static_cast<const int*>(bwd_order), static_cast<const int*>(ckey),
-        static_cast<const int*>(cptr), static_cast<const int*>(loc),
-        static_cast<const float*>(val), static_cast<const float*>(d),
-        static_cast<float*>(y), n_win, n_vox, G, W);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd_densew<float>(win_ptr, bwd_order, ckey, cptr, loc, val,
+                                  d, y, n_win, n_rays, n_vox, G, W, stream);
+}
+
+int routed_fwd_densew_bf16(const void* win_ptr, const void* bwd_order,
+                           const void* ckey, const void* cptr,
+                           const void* loc, const void* val, const void* d,
+                           void* y, int n_win, int n_rays, int n_vox, int G,
+                           int W, void* stream) {
+  return launch_fwd_densew<__nv_bfloat16>(win_ptr, bwd_order, ckey, cptr,
+                                          loc, val, d, y, n_win, n_rays,
+                                          n_vox, G, W, stream);
 }
 
 }  // extern "C"

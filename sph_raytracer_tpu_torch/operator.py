@@ -24,6 +24,11 @@ device, with two execution modes:
   (``'retrace'``).  Outside it (``fused_backend='xla'``, float64) the
   blockwise path :func:`.ops.project.project_fused` runs.
 
+``routed_w_dtype='bf16'`` stores the banded tables' lengths in bfloat16
+(routed mode's tables and fused mode's backward tables; the kernels'
+``<name>_bf16`` instantiations read them); elsewhere it warns and keeps
+f32 (:mod:`.config`).
+
 Entry points run on the card unless the caller asks for the CPU:
 ``device=None`` means ``"cuda"``, and with no card present that raises.
 
@@ -219,6 +224,19 @@ class Operator:
         if config.fused_bwd == "auto":
             self._fused_bwd = "routed" if self._engine else "retrace"
             self._fused_bwd_lazy = self._engine
+        # the banded tables' weight dtype: bf16 wherever banded tables are
+        # built, routed mode's with routed_banded and fused mode's routed
+        # backward's whatever routed_banded is (its tables are banded)
+        self._w_dtype = torch.float32
+        if config.routed_w_dtype == "bf16":
+            if ((mode == "routed" and config.routed_banded)
+                    or (mode == "fused" and self._fused_bwd == "routed")):
+                self._w_dtype = torch.bfloat16
+            else:
+                warnings.warn(
+                    "routed_w_dtype='bf16' only applies to the BANDED routed "
+                    f"engine (mode={mode!r}, routed_banded="
+                    f"{config.routed_banded}); weight tables stay f32")
 
         self.lin = self.lens = self._tables = self._fused_btd = None
         self._tables_memo = None
@@ -242,7 +260,7 @@ class Operator:
         elif mode == "routed":
             lin, lens = self._trace()
             self._tables = build_for(lin, lens, self._flat_size, self._fwd,
-                                     self._bwd)
+                                     self._bwd, w_dtype=self._w_dtype)
         else:
             self.lin, self.lens = self._trace()
 
@@ -280,7 +298,7 @@ class Operator:
         if self._fused_btd is None:
             lin, lens = self._trace()
             self._fused_btd = build_for(lin, lens, self._flat_size,
-                                        self._bwd)
+                                        self._bwd, w_dtype=self._w_dtype)
         return self._fused_btd
 
     # ------------------------------------------------------------------
@@ -290,7 +308,8 @@ class Operator:
         Binned 4D: add ``t_index·V`` to the voxel ids.  Time-interpolated
         4D (``view_times``): append a second copy of each crossing at the
         ceil bin, splitting each length into ``(1-w)·len`` / ``w·len`` —
-        the lerp becomes part of the linear operator itself."""
+        the lerp becomes part of the linear operator itself (bf16 tables
+        round each of the two split lengths, as the JAX package does)."""
         if self._view_offsets is None:
             return lin, lens
         dev, it = lin.device, lin.dtype
@@ -333,7 +352,7 @@ class Operator:
                                               self._fwd) for f in flat2])
         else:
             out = project_table(flat, self.lin, self.lens)
-        return out.reshape(*chan, *self._rshape)
+        return out.reshape(tuple(chan) + self._rshape)
 
     def _fused(self, flat):
         if not self._engine:

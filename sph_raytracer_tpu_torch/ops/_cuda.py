@@ -4,13 +4,17 @@ Every ``csrc/*.cu`` source in :data:`SOURCES` is compiled by its own
 ``nvcc`` call, all started together, and the objects are linked into one
 shared library with a plain C interface, loaded with ctypes.  The build
 runs at first use, on the machine with the card, into the gitignored
-``_build/`` directory under a name keyed by the hash of all sources and
-flags; there is no fallback when it fails.
+``_build/`` directory under a name keyed by the hash of all sources, the
+headers they include (:data:`HEADERS`) and the flags; there is no fallback
+when it fails.
 
 Each C entry point takes device pointers and the stream as ``void*`` and
 sizes as ``int``, and returns ``cudaGetLastError()`` right after its
 launch; :func:`launch` raises when that is not 0 and otherwise adds one to
-the entry's count in :data:`LAUNCHES`.
+the entry's count in :data:`LAUNCHES`.  A kernel templated on its weight
+type has one entry a type: ``<name>`` reads float32 weights and
+``<name>_bf16`` bfloat16 ones (``routed_w_dtype='bf16'``), each counted on
+its own.
 """
 from __future__ import annotations
 
@@ -24,12 +28,13 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-__all__ = ["SOURCES", "LAUNCHES", "reset_launches", "load_library",
-           "launch"]
+__all__ = ["SOURCES", "HEADERS", "LAUNCHES", "BF16_ENTRIES",
+           "reset_launches", "load_library", "launch"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG, "csrc", f) for f in (
     "routed_project.cu", "routed_variants.cu", "fused_project.cu"))
+HEADERS = (os.path.join(_PKG, "csrc", "weight.cuh"),)
 BUILD_DIR = os.path.join(_PKG, "_build")
 # -fmad=false: no a*b+c is contracted into an FMA, so every float op rounds
 # as the plain PyTorch versions' separate ops do (the routed kernels call
@@ -50,6 +55,12 @@ _ENTRIES = {
     "routed_fwd_densew": [_P] * 8 + [_I] * 5 + [_P],
     "fused_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
+# the kernels templated on their weight type: each has a bfloat16 entry
+# ``<name>_bf16`` with the float32 entry's arguments
+BF16_ENTRIES = tuple(f"{n}_bf16" for n in (
+    "routed_fwd", "routed_bwd_gather", "routed_bwd_scatter",
+    "routed_fwd_dense", "routed_fwd_hist", "routed_fwd_densew"))
+_ENTRIES.update({n: _ENTRIES[n[:-len("_bf16")]] for n in BF16_ENTRIES})
 
 # kernel launches per wrapper; each wrapper adds one where it launches its
 # kernel and nowhere else
@@ -79,7 +90,7 @@ def load_library():
     (``-Xptxas -v`` register and spill lines) when this call built it.
     Raises with the compiler's output when the build fails."""
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(src, "rb") as fh:
             h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -129,4 +129,4 @@ def project_fused(gs: GridSpec, density_flat, xs, rays, view_offsets=None,
         run(density_flat, xs[i:i + block], rays[i:i + block],
             None if off is None else off[i:i + block])
         for i in range(0, xs.shape[0], block)], dim=-1)
-    return out.reshape(*out.shape[:-1], *shape[:-1])
+    return out.reshape(tuple(out.shape[:-1]) + tuple(shape[:-1]))

@@ -47,6 +47,16 @@ routed_fwd_densew   ``_fwd_banded_densew_pallas``     routed_fwd_densew_ref
 ``routed_fwd_densew`` has no ``TraceConfig`` value, as B8 has none in the
 JAX package: :mod:`sph_raytracer_tpu_torch.tools.wfwd_probe` runs it.
 
+Weights (the lengths ``val`` / ``valT``) are float32, or bfloat16 with
+``w_dtype=torch.bfloat16`` (``routed_w_dtype='bf16'``): each f32 length is
+rounded to nearest even once, at the build, and both directions read the
+same rounded values, so every (forward, backward) pair stays exactly
+adjoint.  B1, B2, B3, B5, B6 and B8 launch their ``<name>_bf16`` entry on
+bfloat16 tables (widened to f32 in the kernel, f32 accumulation); the
+window pair B7a / B7b takes float32 only, as the JAX package runs its
+window engine on f32 tables alone.  Every wrapper raises ``ValueError`` on
+a weight dtype it does not take, on the CPU too.
+
 :func:`resolve` maps a ``TraceConfig`` to its (forward, backward) pair and
 :func:`build_for` builds the tables that pair reads.
 
@@ -147,19 +157,35 @@ def _live(lin, lens, n_vox):
     return R, live, counts, nnz
 
 
+_W_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _weights(lens, live, w_dtype):
+    """The live lengths as weights: float32, or each float32 length rounded
+    to nearest even in bfloat16 (a float64 trace is rounded to float32
+    first, as the JAX package's f32 tables are); no float32 copy outlives
+    the cast."""
+    if w_dtype not in _W_DTYPES:
+        raise ValueError(f"weight dtype {w_dtype} (want torch.float32 or "
+                         "torch.bfloat16)")
+    return lens[live].to(torch.float32).to(w_dtype)
+
+
 def build_tables(lin, lens, n_vox: int, transpose: bool = True,
-                 csr: bool = True) -> RoutedTables:
+                 csr: bool = True,
+                 w_dtype: torch.dtype = torch.float32) -> RoutedTables:
     """Build the CSR tables from a traced (lin (R, M), lens (R, M)) pair on
     the tables' device.  Zero-length slots are dropped.
 
     ``transpose`` adds the voxel-major transpose; ``csr=False`` then drops
-    the ray-major CSR (the voxel-major kernels do not read it)."""
+    the ray-major CSR (the voxel-major kernels do not read it).
+    ``w_dtype`` is the dtype of ``val`` / ``valT`` (module docstring)."""
     R, live, counts, nnz = _live(lin, lens, n_vox)
     dev = lin.device
     row_ptr = torch.zeros(R + 1, dtype=torch.int32, device=dev)
     row_ptr[1:] = torch.cumsum(counts, 0)
     col = lin[live].to(torch.int32)
-    val = lens[live].to(torch.float32)
+    val = _weights(lens, live, w_dtype)
     vox_ptr = ray = valT = None
     if transpose:
         order = torch.sort(col, stable=True).indices
@@ -275,10 +301,13 @@ def _work_items(n, win_ptr, K):
 
 
 def build_window_tables(lin, lens, n_vox: int, G: int = WIN_G,
-                        W: int = WIN_W, K: int = WIN_K) -> WindowTables:
+                        W: int = WIN_W, K: int = WIN_K,
+                        w_dtype: torch.dtype = torch.float32) -> WindowTables:
     """Build the window chunk table, and the backward's work items of at
     most ``K`` crossings, from a traced (lin, lens) pair on its device
-    (zero-length slots dropped)."""
+    (zero-length slots dropped).  ``w_dtype`` is the dtype of ``val``:
+    bfloat16 tables feed ``routed_fwd_densew`` alone (B7a / B7b take
+    float32)."""
     if not (0 < G <= 2 ** 15 and 0 < W <= 2 ** 16):
         raise ValueError(f"tile G={G} / window W={W} must fit 15 / 16 bits")
     if 4 * (G + 8 * W) > 48 * 1024:
@@ -297,7 +326,7 @@ def build_window_tables(lin, lens, n_vox: int, G: int = WIN_G,
     col = lin[live].long()
     key, order = torch.sort((rows // G) * n_win + col // W, stable=True)
     loc = (((rows % G) << 16) | (col % W))[order].to(torch.int32)
-    val = lens[live].to(torch.float32)[order]
+    val = _weights(lens, live, w_dtype)[order]
     ckey, per_chunk = torch.unique_consecutive(key, return_counts=True)
     cptr = torch.zeros(ckey.shape[0] + 1, dtype=torch.int32, device=dev)
     cptr[1:] = torch.cumsum(per_chunk, 0)
@@ -405,6 +434,26 @@ def routed_fwd_densew_ref(t: WindowTables, d):
     return y.index_add_(0, ray[k], prod)
 
 
+def _entry(name, w):
+    """The C entry of kernel ``name`` for weight table ``w``: ``name`` for
+    float32, ``name_bf16`` for bfloat16; ``ValueError`` for another
+    dtype."""
+    if w.dtype == torch.float32:
+        return name
+    if w.dtype == torch.bfloat16:
+        return f"{name}_bf16"
+    raise ValueError(f"{name} takes float32 or bfloat16 weights, got "
+                     f"{w.dtype}")
+
+
+def _f32_only(name, w):
+    """The window pair's weight check: float32 alone."""
+    if w.dtype != torch.float32:
+        raise ValueError(f"{name} takes float32 weights only (the window "
+                         "engine keeps f32 tables, as in the JAX package), "
+                         f"got {w.dtype}")
+
+
 def _check(x, n, what, tables):
     """Validate a kernel input: 1-D float32 of length n on the tables'
     CUDA device."""
@@ -447,11 +496,12 @@ def routed_fwd(t: RoutedTables, d):
     if t.row_ptr is None:
         raise ValueError("routed_fwd needs the ray-major CSR (these are "
                          "backward-only tables for the gather)")
+    entry = _entry("routed_fwd", t.val)
     if d.device.type == "cpu":
         return routed_fwd_ref(t, d)
     d = _check(d, t.n_vox, "density", t)
     y = torch.empty(t.n_rays, dtype=torch.float32, device=d.device)
-    launch("routed_fwd", (t.row_ptr, t.col, t.val, d, y), (t.n_rays,))
+    launch(entry, (t.row_ptr, t.col, t.val, d, y), (t.n_rays,))
     return y
 
 
@@ -460,11 +510,12 @@ def routed_bwd_gather(t: RoutedTables, dy):
     if t.vox_ptr is None:
         raise ValueError("routed_bwd_gather needs the voxel-major "
                          "transpose (build_tables(..., transpose=True))")
+    entry = _entry("routed_bwd_gather", t.valT)
     if dy.device.type == "cpu":
         return routed_bwd_gather_ref(t, dy)
     dy = _check(dy, t.n_rays, "dy", t)
     dD = torch.empty(t.n_vox, dtype=torch.float32, device=dy.device)
-    launch("routed_bwd_gather", (t.vox_ptr, t.ray, t.valT, dy, dD),
+    launch(entry, (t.vox_ptr, t.ray, t.valT, dy, dD),
            (t.n_vox,))
     return dD
 
@@ -478,6 +529,7 @@ def routed_bwd_scatter(t: RoutedTables, dy, counts=None):
     tile's table; the plain version ignores it."""
     if t.row_ptr is None:
         raise ValueError("routed_bwd_scatter needs the ray-major CSR")
+    entry = _entry("routed_bwd_scatter", t.val)
     if dy.device.type == "cpu":
         return routed_bwd_scatter_ref(t, dy)
     if counts is not None and (counts.dtype != torch.int32
@@ -490,7 +542,7 @@ def routed_bwd_scatter(t: RoutedTables, dy, counts=None):
     if counts is not None and counts.device != dy.device:
         raise ValueError(f"counts on {counts.device}, dy on {dy.device}")
     dD = torch.empty(t.n_vox, dtype=torch.float32, device=dy.device)
-    launch("routed_bwd_scatter", (t.row_ptr, t.col, t.val, dy, dD, counts),
+    launch(entry, (t.row_ptr, t.col, t.val, dy, dD, counts),
            (t.n_rays, t.n_vox, SCATTER_TILE, SCATTER_SLOTS))
     return dD
 
@@ -501,11 +553,12 @@ def routed_fwd_dense(t: RoutedTables, d):
     if t.vox_ptr is None:
         raise ValueError("routed_fwd_dense needs the voxel-major transpose "
                          "(build_tables(..., transpose=True))")
+    entry = _entry("routed_fwd_dense", t.valT)
     if d.device.type == "cpu":
         return routed_fwd_dense_ref(t, d)
     d = _check(d, t.n_vox, "density", t)
     y = torch.empty(t.n_rays, dtype=torch.float32, device=d.device)
-    launch("routed_fwd_dense", (t.vox_ptr, t.ray, t.valT, d, y),
+    launch(entry, (t.vox_ptr, t.ray, t.valT, d, y),
            (t.n_vox, t.n_rays))
     return y
 
@@ -514,17 +567,19 @@ def routed_fwd_hist(t: RoutedTables, d):
     """y (R,) = A·d, one CTA per ray tile; kernel ``routed_fwd_hist``."""
     if t.row_ptr is None:
         raise ValueError("routed_fwd_hist needs the ray-major CSR")
+    entry = _entry("routed_fwd_hist", t.val)
     if d.device.type == "cpu":
         return routed_fwd_hist_ref(t, d)
     d = _check(d, t.n_vox, "density", t)
     y = torch.empty(t.n_rays, dtype=torch.float32, device=d.device)
-    launch("routed_fwd_hist", (t.row_ptr, t.col, t.val, d, y), (t.n_rays,))
+    launch(entry, (t.row_ptr, t.col, t.val, d, y), (t.n_rays,))
     return y
 
 
 def routed_fwd_window(t: WindowTables, d):
     """y (R,) = A·d over the window chunk table; kernel
     ``routed_fwd_window``."""
+    _f32_only("routed_fwd_window", t.val)
     if d.device.type == "cpu":
         return routed_fwd_window_ref(t, d)
     d = _check(d, t.n_vox, "density", t)
@@ -538,6 +593,7 @@ def routed_fwd_window(t: WindowTables, d):
 def routed_bwd_window(t: WindowTables, dy):
     """dD (V,) = Aᵀ·dy over the window chunk table, one CTA a work item
     (``t.item_ptr``); kernel ``routed_bwd_window``."""
+    _f32_only("routed_bwd_window", t.val)
     if dy.device.type == "cpu":
         return routed_bwd_window_ref(t, dy)
     dy = _check(dy, t.n_rays, "dy", t)
@@ -552,11 +608,12 @@ def routed_bwd_window(t: WindowTables, dy):
 def routed_fwd_densew(t: WindowTables, d):
     """y (R,) = A·d over the window chunk table, window-major, by atomics;
     kernel ``routed_fwd_densew``."""
+    entry = _entry("routed_fwd_densew", t.val)
     if d.device.type == "cpu":
         return routed_fwd_densew_ref(t, d)
     d = _check(d, t.n_vox, "density", t)
     y = torch.empty(t.n_rays, dtype=torch.float32, device=d.device)
-    launch("routed_fwd_densew",
+    launch(entry,
            (t.win_ptr, t.bwd_order, t.ckey, t.cptr, t.loc, t.val, d, y),
            (t.n_win, t.n_rays, t.n_vox, t.G, t.W))
     return y
@@ -603,13 +660,15 @@ def resolve(config):
     return fwd, BACKWARDS[config.routed_dense]
 
 
-def build_for(lin, lens, n_vox: int, *wrappers):
-    """The tables that ``wrappers`` read, and nothing more."""
+def build_for(lin, lens, n_vox: int, *wrappers,
+              w_dtype: torch.dtype = torch.float32):
+    """The tables that ``wrappers`` read, and nothing more, with weights
+    of ``w_dtype``."""
     reads = {_READS[w] for w in wrappers}
     if "window" in reads:
-        return build_window_tables(lin, lens, n_vox)
+        return build_window_tables(lin, lens, n_vox, w_dtype=w_dtype)
     return build_tables(lin, lens, n_vox, transpose="transpose" in reads,
-                        csr="csr" in reads)
+                        csr="csr" in reads, w_dtype=w_dtype)
 
 
 class _RoutedProject(torch.autograd.Function):

@@ -12,8 +12,10 @@ ray, all rays vectorized:
   5. segment voxel labels by midpoint classification (:func:`_bin_segments`)
 
 ``M = 2(N_r+1) + 2(N_e+1) + (N_a+1) + 1`` crossings per ray.
-``trace_crossings_ranked`` and ``voxel_order_*`` are not ported yet
-(ROADMAP A2).
+``trace_method='ranked'`` runs this pipeline too: the JAX package's
+``trace_crossings_ranked`` avoids a sort that is slow on a TPU and yields
+the same (voxel, length) pairs, and the sort is fast on the card.
+``voxel_order_*`` is not ported yet (ROADMAP A3).
 """
 from __future__ import annotations
 

@@ -30,8 +30,9 @@ def detach_loss(loss):
 
 
 def gd(f, y, model, coeffs=None, num_iterations=100, loss_fns=None,
-       optim=torch.optim.Adam, progress_bar=True, checkpoint_path=None,
-       checkpoint_every: int = 0, resume: bool = False, **kwargs):
+       optim=torch.optim.Adam, progress_bar=True, chunk=None,
+       checkpoint_path=None, checkpoint_every: int = 0,
+       resume: bool = False, **kwargs):
     """Gradient descent to minimize a weighted sum of losses.
 
     Minimizes ``sum(loss_fn(f, y, model(coeffs), coeffs))`` over the
@@ -52,6 +53,9 @@ def gd(f, y, model, coeffs=None, num_iterations=100, loss_fns=None,
             ``**kwargs`` (default Adam, lr 1e-3; ``learning_rate=`` is
             accepted as an alias of ``lr``).
         progress_bar: show tqdm progress with F/R/O loss buckets.
+        chunk: accepted and ignored, so calls written for the JAX package
+            run unchanged: there it sets the iterations of one compiled
+            scan; here the loop is eager, one step an iteration.
         checkpoint_path / checkpoint_every: if set, save (coeffs, Adam
             state, iteration) every N iterations in the JAX package's
             checkpoint format; ``resume=True`` restarts from the checkpoint,

@@ -3,7 +3,8 @@ beside the by-tile forward ``routed_fwd`` (B1) at a real configuration.
 
 The port's counterpart of the JAX package's ``tools/wfwd_probe.py``::
 
-    python -m sph_raytracer_tpu_torch.tools.wfwd_probe [config]  # vol100
+    python -m sph_raytracer_tpu_torch.tools.wfwd_probe [config] \
+        [--w-dtype bf16]                                      # vol100, f32
 
 It builds the port's ``Operator`` on the config's orbit (one trace), and
 from that trace the ray-major CSR (B1's table) and the window chunk table
@@ -15,6 +16,10 @@ reads, the chunk count and the largest difference of its y from B1's; for
 B8 also the atomics it issues.  The command runs on the card;
 :func:`probe` takes ``device='cpu'`` (the wrappers then run their plain
 versions and no time is measured).
+
+``w_dtype='bf16'`` mirrors the JAX package's ``banded_device_wfwd(bt,
+w_dtype=)``: B8 and B1 read bfloat16 weights (their ``_bf16`` kernels),
+B7a keeps its float32 chunk table, as the window engine does.
 
 Left out of the JAX probe: its RP-capped hybrid (``split_reps`` /
 ``select_chunks``) splits the TPU's rep-chunks, which exist because a TPU
@@ -97,17 +102,19 @@ def cuda_ms(fn, n=N_TIMED, warm=3):
     return a.elapsed_time(b) / n
 
 
-def probe(config="vol100", device=None):
+def probe(config="vol100", device=None, w_dtype="f32"):
     """Run ``routed_fwd`` (B1), ``routed_fwd_window`` (B7a) and
     ``routed_fwd_densew`` (B8) at ``config``: a name in :data:`CONFIGS` or
-    a ``(vol_shape, n_views, det_shape)`` tuple.
+    a ``(vol_shape, n_views, det_shape)`` tuple, B1 and B8 on weights of
+    ``w_dtype`` ('f32' or 'bf16'), B7a on f32 ones.
 
     Returns a dict: the sizes (``n_rays``, ``n_vox``, ``nnz``), ``setup_s``
     (trace and both tables), B8's ``runs`` and ``atomics``
-    (:func:`densew_atomics`), the tables ``csr`` and ``win``, the density
-    ``d``, each kernel's image in ``y`` and one record a kernel in
-    ``kernels``.  ``ms`` is the mean of :data:`N_TIMED` launches on the
+    (:func:`densew_atomics`), the tables ``csr`` (B1's) and ``win`` (B8's),
+    the density ``d``, each kernel's image in ``y`` and one record a kernel
+    in ``kernels``.  ``ms`` is the mean of :data:`N_TIMED` launches on the
     card, None on the CPU."""
+    wdt = {"f32": torch.float32, "bf16": torch.bfloat16}[w_dtype]
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
     vshape, n_views, det = CONFIGS[config] if isinstance(config, str) \
@@ -118,19 +125,22 @@ def probe(config="vol100", device=None):
     op = Operator(SphericalGrid(shape=vshape), _orbit(n_views, det),
                   mode="precomputed", device=dev)
     V = op._flat_size
-    csr = rp.build_tables(op.lin, op.lens, V, transpose=False)
-    win = rp.build_window_tables(op.lin, op.lens, V)
+    csr = rp.build_tables(op.lin, op.lens, V, transpose=False, w_dtype=wdt)
+    win32 = rp.build_window_tables(op.lin, op.lens, V)
+    # the same chunk table with each length rounded, as a bf16 build makes
+    win = win32._replace(val=win32.val.to(wdt))
     del op
     if cuda:
         torch.cuda.synchronize(dev)
     setup_s = time.time() - t0
     d = torch.rand(V, generator=torch.Generator().manual_seed(SEED)).to(dev)
     runs, atomics = densew_atomics(win)
-    common = (win.ckey, win.cptr, win.loc, win.val)
+    common = (win.ckey, win.cptr, win.loc)
     reads = {"routed_fwd": (csr, (csr.row_ptr, csr.col, csr.val)),
-             "routed_fwd_window": (win, (win.tile_ptr, *common)),
+             "routed_fwd_window": (win32, (win32.tile_ptr, *common,
+                                           win32.val)),
              "routed_fwd_densew": (win, (win.win_ptr, win.bwd_order,
-                                         *common))}
+                                         *common, win.val))}
     ys, records = {}, []
     for name, (tab, ts) in reads.items():
         kern = getattr(rp, name)
@@ -142,12 +152,13 @@ def probe(config="vol100", device=None):
             "bound_ms": (table_bytes + 4 * V + 4 * csr.n_rays)
             / HBM_BYTES_PER_S * 1e3,
             "table_bytes": table_bytes,
-            "chunks": int(win.ckey.shape[0]) if tab is win else None,
+            "chunks": None if tab is csr else int(win.ckey.shape[0]),
             "atomics": atomics if name == "routed_fwd_densew" else None,
             "max_abs_diff_vs_routed_fwd": float(
                 (ys[name] - ys["routed_fwd"]).abs().max()),
         })
-    return {"config": config, "device": str(dev), "n_rays": csr.n_rays,
+    return {"config": config, "device": str(dev), "w_dtype": w_dtype,
+            "n_rays": csr.n_rays,
             "n_vox": V, "nnz": win.nnz, "setup_s": setup_s, "runs": runs,
             "atomics": atomics, "csr": csr, "win": win, "d": d, "y": ys,
             "kernels": records}
@@ -157,9 +168,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("config", nargs="?", default="vol100",
                     choices=sorted(CONFIGS))
+    ap.add_argument("--w-dtype", default="f32", choices=("f32", "bf16"),
+                    help="weights of B1 and B8 (B7a stays f32)")
     args = ap.parse_args(argv)
-    res = probe(args.config)
-    print(f"[probe] {args.config} on {torch.cuda.get_device_name()}: "
+    res = probe(args.config, w_dtype=args.w_dtype)
+    print(f"[probe] {args.config}, {args.w_dtype} weights, on "
+          f"{torch.cuda.get_device_name()}: "
           f"R={res['n_rays']} V={res['n_vox']} nnz={res['nnz']} setup "
           f"{res['setup_s']:.3f} s; routed_fwd_densew: {res['runs']} (ray, "
           f"chunk) runs, {res['atomics']} atomics (one a crossing would be "
@@ -169,9 +183,10 @@ def main(argv=None):
               f"{r['bound_ms']:.4f} ms, tables {r['table_bytes']} B, chunks "
               f"{r['chunks']}, max diff vs routed_fwd "
               f"{r['max_abs_diff_vs_routed_fwd']:.3e}", flush=True)
-    print(json.dumps({k: res[k] for k in ("config", "device", "n_rays",
-                                          "n_vox", "nnz", "setup_s", "runs",
-                                          "atomics", "kernels")}))
+    print(json.dumps({k: res[k] for k in ("config", "device", "w_dtype",
+                                          "n_rays", "n_vox", "nnz",
+                                          "setup_s", "runs", "atomics",
+                                          "kernels")}))
     return 0
 
 

@@ -10,8 +10,10 @@ tensors (the fused kernel at every padded crossing count it is built for,
 and with the lerp; the routed variants on synthetic tables with empty
 rays, empty windows and a last tile of one ray; the window backward on a
 window cut into several work items, the scatter backward on tiles that
-overflow its shared table), and one training step of each routed
-configuration and of fused mode on the card against the CPU.
+overflow its shared table), each ``<name>_bf16`` instantiation against its
+plain version on bf16 tables, and one training step of each routed
+configuration (f32 and bf16 weights) and of fused mode on the card
+against the CPU.
 """
 import numpy as np
 import pytest
@@ -119,6 +121,42 @@ def test_variant_kernels_match_plain_versions(cuda, case):
             atol=1e-5 * max(float(want.abs().max()), 1e-30))
 
 
+# the kernels with a bf16 instantiation, and the table each reads
+BF16_KERNELS = {"routed_fwd": "csr", "routed_bwd_gather": "csr",
+                "routed_bwd_scatter": "csr", "routed_fwd_dense": "csr",
+                "routed_fwd_hist": "csr", "routed_fwd_densew": "window"}
+
+
+@pytest.mark.parametrize("case", range(len(VARIANT_CASES)))
+def test_bf16_kernels_match_plain_versions(cuda, case):
+    """Each ``<name>_bf16`` entry against its plain version on the same
+    bf16 tables (which widens the same rounded lengths); only the bf16
+    counter moves."""
+    kw = VARIANT_CASES[case]
+    lin, lens = _synthetic(case, **kw)
+    lin, lens, V = lin.to(cuda), lens.to(cuda), kw["V"]
+    tabs = {"csr": rp.build_tables(lin, lens, V, w_dtype=torch.bfloat16),
+            "window": rp.build_window_tables(lin, lens, V,
+                                             w_dtype=torch.bfloat16)}
+    gen = torch.Generator().manual_seed(case)
+    d = torch.rand(V, generator=gen).to(cuda)
+    dy = torch.randn(kw["R"], generator=gen).to(cuda)
+    for name, which in BF16_KERNELS.items():
+        tab = tabs[which]
+        assert tab.val is None or tab.val.dtype == torch.bfloat16
+        x = dy if "bwd" in name else d
+        before = dict(rp.LAUNCHES)
+        got = getattr(rp, name)(tab, x)
+        want = getattr(rp, f"{name}_ref")(tab, x)
+        torch.cuda.synchronize()
+        assert rp.LAUNCHES[f"{name}_bf16"] == before[f"{name}_bf16"] + 1
+        assert rp.LAUNCHES[name] == before[name]
+        # atomics sum in a run-to-run order
+        torch.testing.assert_close(
+            got, want, rtol=1e-4,
+            atol=1e-5 * max(float(want.abs().max()), 1e-30))
+
+
 def _adjoint_rel(fwd, bwd, t, gen, device):
     x = torch.randn(t.n_vox, generator=gen).to(device)
     y = torch.randn(t.n_rays, generator=gen).to(device)
@@ -184,6 +222,7 @@ ROUTED_CONFIGS = [dict(), dict(routed_dense="off"),
                   dict(routed_dense="fwd"), dict(routed_dense="both"),
                   dict(routed_fwd_reduce="hist"),
                   dict(routed_banded=False)]
+ROUTED_CONFIGS += [dict(c, routed_w_dtype="bf16") for c in ROUTED_CONFIGS[:5]]
 
 
 @pytest.mark.parametrize("cfg", ROUTED_CONFIGS, ids=str)
@@ -262,7 +301,8 @@ def test_fused_kernel_lerp(cuda):
                  fp.fused_fwd_ref(op.gs, op._frays, d))
 
 
-def test_fused_step_matches_cpu(cuda):
+@pytest.mark.parametrize("w_dtype", ["f32", "bf16"])
+def test_fused_step_matches_cpu(cuda, w_dtype):
     grid = prt.SphericalGrid(shape=(12, 10, 10))
     geom = sum(
         prt.ConeRectGeom((8, 9), pos=(2 * np.cos(t), 2 * np.sin(t), 0.4),
@@ -271,7 +311,8 @@ def test_fused_step_matches_cpu(cuda):
     x = np.random.default_rng(4).random(tuple(grid.shape)).astype(np.float32)
     out = []
     for dev in (cuda, "cpu"):
-        op = prt.Operator(grid, geom, mode="fused", device=dev)
+        op = prt.Operator(grid, geom, mode="fused", device=dev,
+                          config=prt.TraceConfig(routed_w_dtype=w_dtype))
         v = torch.tensor(x, device=op.device, requires_grad=True)
         y = op(v)
         torch.mean((y - 1.0) ** 2).backward()

@@ -123,19 +123,21 @@ def _routed_problem(pkg):
     return grid, geom
 
 
-def _jax_routed_on_port_trace(cfg, monkeypatch, tmp_path):
-    """The JAX routed operator built from the port's own f32 trace, fed
-    through the JAX package's trace cache (``SPH_TPU_TRACE_CACHE``).
+def _jax_routed_on_port_trace(cfg, monkeypatch, tmp_path,
+                              problem=_routed_problem):
+    """The JAX routed operator on ``problem(pkg)``'s (grid, geom) built from
+    the port's own f32 trace, fed through the JAX package's trace cache
+    (``SPH_TPU_TRACE_CACHE``).
 
     Both packages' f32 traces carry ~1e-5 relative rounding noise in the
     cone crossings (cancellation in the quadratic; XLA's fused program
     rounds differently from its own eager run), so the same tables are
     given to both sides: the comparison then holds the kernels' math."""
-    jgrid, jgeom = _routed_problem(srt)
+    jgrid, jgeom = problem(srt)
     monkeypatch.setenv("SPH_TPU_TRACE_CACHE", str(tmp_path))
     path = srt.Operator(jgrid, jgeom, config=cfg,
                         _compute=False)._trace_cache_path()
-    grid, geom = _routed_problem(prt)
+    grid, geom = problem(prt)
     lin, lens, n, rs = prt.ops.project.precompute_table(
         prt.ops.trace.GridSpec.from_grid(grid), geom.ray_starts, geom.rays,
         device="cpu")
@@ -321,6 +323,53 @@ def test_view_times_routed_matches_precomputed():
 
 
 # ---------------------------------------------------------------------------
+# a scalar-output geometry: ViewGeom with 1-D inputs has shape ()
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def scalar_jax():
+    """The JAX package's 0-d forward of one ray through a (4, 5, 6) grid, in
+    float64 and float32 (their traces differ by ~1 % on this ray, so each
+    port dtype is held against its own)."""
+    x = np.random.default_rng(0).random((4, 5, 6))
+    out = {}
+    for ft in (jnp.float64, jnp.float32):
+        jop = srt.Operator(srt.SphericalGrid(shape=(4, 5, 6)),
+                           srt.ViewGeom([-3, 0.1, 0.05], [1, 0, 0]),
+                           ftype=ft)
+        y = jop(jnp.asarray(x, ft))
+        assert y.shape == ()
+        out[np.dtype(ft).name] = float(y)
+    return x, out
+
+
+@pytest.mark.parametrize("mode,ftype,backend", [
+    ("precomputed", F64, "auto"), ("routed", torch.float32, "auto"),
+    ("fused", torch.float32, "auto"), ("fused", torch.float32, "xla"),
+])
+def test_scalar_output(scalar_jax, mode, ftype, backend):
+    """A forward to a shape-() geometry returns a 0-d tensor equal to the
+    JAX package's, in every mode (``fused_backend='xla'`` is the blockwise
+    ``project_fused``); ``.T`` and the gradient keep the grid's shape."""
+    x, want = scalar_jax
+    grid = prt.SphericalGrid(shape=(4, 5, 6))
+    op = prt.Operator(grid, prt.ViewGeom([-3, 0.1, 0.05], [1, 0, 0]),
+                      mode=mode, ftype=ftype, device="cpu",
+                      config=prt.TraceConfig(fused_backend=backend))
+    assert op._engine == (mode == "fused" and backend == "auto")
+    v = torch.tensor(x, dtype=ftype, requires_grad=True)
+    y = op(v)
+    assert y.shape == () and y.dtype == ftype
+    # tests/test_parity.py's tolerances
+    np.testing.assert_allclose(y.item(), want[str(ftype)[6:]], rtol=1e-5,
+                               atol=1e-6)
+    y.backward()
+    assert v.grad.shape == tuple(grid.shape)
+    np.testing.assert_allclose(v.grad.numpy(), op.T(torch.ones(())).numpy(),
+                               rtol=1e-6, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
 # configuration surface
 # ---------------------------------------------------------------------------
 
@@ -328,10 +377,22 @@ def test_view_times_routed_matches_precomputed():
     ("routed_w_dtype", "bf16"), ("trace_method", "ranked"),
 ])
 def test_unported_values_raise(field, value):
+    """The two values that once raised ``NotImplementedError`` build and
+    run: a routed operator on bf16 tables within the rounding of the f32
+    one, and the ranked trace equal to the sorted one."""
     grid, geom = _routed_problem(prt)
     cfg = prt.TraceConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prt.Operator(grid, geom, config=cfg, device="cpu")
+    op = prt.Operator(grid, geom, mode="routed", config=cfg, device="cpu")
+    ref = prt.Operator(grid, geom, mode="routed", device="cpu")
+    assert op._tables.val.dtype == (torch.bfloat16 if value == "bf16"
+                                    else torch.float32)
+    x = torch.rand(tuple(grid.shape),
+                   generator=torch.Generator().manual_seed(6))
+    rtol = 2e-2 if value == "bf16" else 1e-6
+    np.testing.assert_allclose(op(x).numpy(), ref(x).numpy(), rtol=rtol,
+                               atol=1e-6)
+    np.testing.assert_allclose(op.T(ref(x)).numpy(), ref.T(ref(x)).numpy(),
+                               rtol=rtol, atol=1e-6)
 
 
 def test_config_keeps_jax_field_names():

@@ -174,3 +174,16 @@ def test_gd_port_contract(problem):
     with pytest.raises(ValueError, match="same grid"):
         gd(op, y, FullyDenseModel(prt.SphericalGrid(shape=(5, 6, 6))),
            num_iterations=1, progress_bar=False)
+
+
+def test_gd_accepts_chunk(problem):
+    """``chunk=`` (the JAX package's scan length, tests/test_retrieval.py's
+    call form) is accepted and changes nothing in the eager loop."""
+    _, _, grid, op, y, c0 = problem
+    runs = [gd(op, y.copy(), FullyDenseModel(grid), coeffs=torch.tensor(c0),
+               num_iterations=3, lr=0.05, progress_bar=False, **kw)
+            for kw in ({}, {"chunk": 5})]
+    (c_a, y_a, h_a), (c_b, y_b, h_b) = runs
+    assert torch.equal(c_a, c_b) and torch.equal(y_a, y_b)
+    assert list(h_a.values()) == list(h_b.values())
+    assert len(next(iter(h_b.values()))) == 3

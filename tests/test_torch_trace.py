@@ -107,6 +107,65 @@ def test_trace_matches_jax_multiset(name):
     assert live > 0
 
 
+# tests/test_trace.py:146-190's grids: partial, log and full azimuth, and a
+# degenerate single-voxel r/a grid
+RANKED_GRIDS = {
+    "cube8": lambda p: p.SphericalGrid(shape=(8, 8, 8)),
+    "log": lambda p: p.SphericalGrid(shape=(6, 7, 8), size_r=(0.1, 2.0),
+                                     spacing="log"),
+    "partial": lambda p: p.SphericalGrid(r_b=np.linspace(0, 1, 7),
+                                         e_b=np.linspace(0.3, 2.8, 7),
+                                         a_b=np.linspace(-2.0, 2.5, 9)),
+    "single": lambda p: p.SphericalGrid(shape=(1, 2, 1), size_r=(0, 25)),
+}
+
+
+def _rays_into_grid():
+    """40 random rays aimed into the unit ball, a quarter of them starting
+    inside it (float64)."""
+    rng = np.random.default_rng(11)
+    xs = rng.normal(size=(40, 3)) * 3
+    xs[:10] *= 0.1
+    dirs = rng.uniform(-0.8, 0.8, size=(40, 3)) - xs
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    return xs, dirs
+
+
+@pytest.mark.parametrize("name", sorted(RANKED_GRIDS))
+def test_ranked_matches_jax_ranked_trace(name):
+    """``trace_method='ranked'`` (the port's sorted trace, config
+    docstring) holds the (voxel, length) pairs of the JAX package's
+    ``trace_crossings_ranked``: the same multiset per ray at float64."""
+    xs, dirs = _rays_into_grid()
+    jl, jn, n, _ = jax_precompute(
+        JaxGridSpec.from_grid(RANKED_GRIDS[name](srt), ftype=jnp.float64),
+        xs, dirs, block=64, method="ranked")
+    op = prt.Operator(RANKED_GRIDS[name](prt), prt.ViewGeom(xs, dirs),
+                      mode="precomputed", ftype=torch.float64, device="cpu",
+                      config=prt.TraceConfig(trace_method="ranked"))
+    assert n == len(xs) and op.lin.shape == (n, jl.shape[1])
+    live = 0
+    for (a_l, a_n), (b_l, b_n) in zip(_multisets(jl[:n], jn[:n]),
+                                      _multisets(op.lin, op.lens)):
+        np.testing.assert_array_equal(b_l, a_l)
+        np.testing.assert_allclose(b_n, a_n, rtol=0, atol=1e-12)
+        live += len(a_l)
+    assert live > 0
+
+
+def test_ranked_config_runs_sorted_trace():
+    """Every ``trace_method`` value builds the same tables, bit for bit."""
+    xs, dirs = _rays_into_grid()
+    grid = RANKED_GRIDS["partial"](prt)
+    ops = [prt.Operator(grid, prt.ViewGeom(xs, dirs), mode="precomputed",
+                        ftype=torch.float64, device="cpu",
+                        config=prt.TraceConfig(trace_method=m))
+           for m in ("ranked", "sorted", "auto")]
+    for op in ops[1:]:
+        assert torch.equal(op.lin, ops[0].lin)
+        assert torch.equal(op.lens, ops[0].lens)
+
+
 def test_import_loads_no_jax():
     """Importing the port loads no jax and no module of the JAX package."""
     code = (
