@@ -52,7 +52,10 @@ Phases (any failure raises and exits non-zero):
    ``routed_fwd_reduce='hist'`` (``routed_fwd_hist`` + the gather) and
    ``routed_banded=False`` (``routed_fwd_window`` + ``routed_bwd_window`` on
    the window chunk table).  ``routed_bwd_window``'s work items: their
-   count, the largest, ``K``.  From those operators' tables: each new
+   count, the largest, ``K``; ``routed_fwd_window``'s pieces: their count,
+   the largest, ``KF``; ``routed_fwd_dense``'s global atomics at atomic
+   width 1, 2 and 4 (counted from the table) against one a crossing.  From
+   those operators' tables: each new
    kernel against its plain version, the adjoint identity of each pair,
    each variant's image against ``routed_fwd``'s; then ``retrieval.gd``
    for 5 iterations through each, counters reset just before and read
@@ -661,6 +664,16 @@ def main(argv):
         f"{int(per_item.max())}, mean {float(per_item.mean()):.1f}; "
         f"{int(torch.unique(t_win.item_win).numel())} non-empty windows; "
         f"item list {nbytes(t_win.item_ptr, t_win.item_win)} B")
+    sizes = torch.diff(t_win.piece_ptr)
+    log(f"[variant window] routed_fwd_window: {t_win.n_pieces} pieces of at "
+        f"most KF={t_win.KF} crossings, largest {int(sizes.max())}, mean "
+        f"{float(sizes.double().mean()):.1f}, {rp.WIN_FWD_THREADS} threads a "
+        f"CTA; piece list {nbytes(t_win.piece_ptr, t_win.piece_chunk)} B")
+    dense_atomics = {w: rp.dense_fwd_atomics(t_both, w) for w in (1, 2, 4)}
+    log(f"[variant both] routed_fwd_dense: global atomics at width 1 / 2 / 4 "
+        f"{dense_atomics[1]} / {dense_atomics[2]} / {dense_atomics[4]} "
+        f"(width {rp.DENSE_WIDTH} runs, warp spread {rp.DENSE_SPREAD}); one "
+        f"a crossing {t_both.nnz}")
     # shared or global atomics sum in a run-to-run order: rtol 1e-4
     new_checks = {
         "routed_fwd_dense": (t_both, d, rp.routed_fwd_dense_ref),
@@ -732,7 +745,8 @@ def main(argv):
         + 4 * V + 4 * R,
         "routed_fwd_hist": nbytes(t_hist.row_ptr, t_hist.col, t_hist.val)
         + 4 * V + 4 * R,
-        "routed_fwd_window": nbytes(t_win.tile_ptr) + win_common
+        "routed_fwd_window": nbytes(t_win.tile_ptr, t_win.piece_ptr,
+                                    t_win.piece_chunk) + win_common
         + 4 * V + 4 * R,
         "routed_bwd_window": nbytes(t_win.win_ptr, t_win.bwd_order,
                                     t_win.item_ptr, t_win.item_win)
@@ -757,9 +771,12 @@ def main(argv):
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "library_ms": lib_ms})
+        extra = (f", {dense_atomics[rp.DENSE_WIDTH]} global atomics"
+                 if name == "routed_fwd_dense" else "")
         log(f"[kernel] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library {lib_ms:.4f} ms, bound {max(byte_ms, op_ms):.4f} ms "
-            f"({var_bytes[name]} bytes), {byte_ms / ms:.1%} of the bound")
+            f"({var_bytes[name]} bytes), {byte_ms / ms:.1%} of the "
+            f"bound{extra}")
 
     # 14. the window-major forward (B8) on phase 12's chunk table, then the
     # path that runs it: the probe at vol100 ------------------------------

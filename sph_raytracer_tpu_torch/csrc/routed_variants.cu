@@ -27,15 +27,29 @@
 // What bounds them on this card: bytes.  Each streams 8 B of table per
 // live crossing (an index and a length) and does 2 flops per crossing, far
 // below the H100's f32 balance point; the gathered vector (d or dy, at
-// most a few MB) stays in the 50 MB L2.  What each design does about it:
+// most a few MB) stays in the 50 MB L2.  What each design does about it
+// (a float atomicAdd into shared memory compiles to a compare-and-swap
+// loop on sm_90a; into global memory it is one reduction):
 //
 // * routed_fwd_dense: the TPU kernel's idea is "slot = density window:
 //   each density value is fetched once".  Here one warp per voxel reads
 //   d[v] once into a register and strides the voxel's rays with coalesced
 //   table reads, adding valT[k]*d[v] into y[ray[k]] with global atomics
 //   (the C entry zeroes y first).  It reads the gather backward's tables,
-//   so routed_dense='both' trains on the transpose alone.  The atomics sum
-//   in a run-to-run order.
+//   so routed_dense='both' trains on the transpose alone.  One atomic a
+//   crossing (17.1 M at the flagship) held it at 2.2x torch.mv's time, yet
+//   the atomics' count does not set its pace: with Hopper's float4 atomics
+//   over aligned 4-ray groups (a voxel's rays ascend and neighbouring
+//   pixels cross the same voxels) it issues half as many (8.8 M) and runs
+//   1.5-5 % faster, and plain stores in their place run slower (NVIDIA H100
+//   80GB HBM3, 700.00 W; PERF.md section 6).  What costs is the scatter:
+//   a voxel's rays come from every view that sees it, so each warp's 32
+//   adds spread over many 32 B sectors of y, and the L2 takes each sector
+//   whatever the adds in it.  The width-4 groups stay (kW = DENSE_WIDTH
+//   from the wrapper), and the warps in flight take distant voxels (the
+//   warp order's spread, DENSE_SPREAD), which moved it 7-10 %: presumably
+//   because neighbouring voxels share rays, so their warps' adds met on
+//   the same sectors.  The atomics sum in a run-to-run order.
 // * routed_fwd_hist: the TPU kernel's idea is a reduce whose cost barely
 //   depends on how many crossings each ray has.  Here one CTA owns a tile
 //   of kHistTile rays and walks the tile's crossing range kBlock crossings
@@ -51,18 +65,28 @@
 //   the tile's dy (backward) staged in fast memory.  The chunk table holds
 //   the live crossings sorted by chunk, 8 B each: one int32 packing the
 //   ray's offset in its tile (high 16 bits) and the voxel's offset in its
-//   window (low 16 bits), and one f32 length.  The forward runs one CTA per
-//   ray tile over its chunks in window order: it stages the window's slice
-//   of d in shared memory, sums each ray's run in the warp and adds it into
-//   a shared y tile, and writes the tile once (no global atomics).  Tile
-//   (G rays) and window (W voxels) sizes come from the wrapper
-//   (ops/routed_project.py WIN_G = 1024, WIN_W = 256): at the flagship
-//   (250,000 rays, 125,000 voxels) 245 tiles, so the forward launches more
-//   CTAs than the card's 132 SMs.  With that few CTAs an SM, a chunk of a
-//   few hundred crossings is too little work to hide its barrier and load
-//   latency: each CTA is kGroups groups that walk different chunks at once,
-//   each with its own staging buffer, so a CTA holds G + kGroups·W floats
-//   of shared memory (12 KB).
+//   window (low 16 bits), and one f32 length.  Tile (G rays) and window (W
+//   voxels) sizes come from the wrapper (ops/routed_project.py WIN_G =
+//   1024, WIN_W = 256): at the flagship (250,000 rays, 125,000 voxels) 245
+//   tiles and 489 windows.
+//   The forward was one CTA per ray tile, its 8 groups each staging a
+//   chunk's window of d in shared memory between two barriers, and three
+//   things held it at 2.3x torch.mv's time (PERF.md section 6): chunks of
+//   a median 286 crossings filled a group's 512-crossing step 57 %; each
+//   chunk staged 1 KB of d (41.6 MB in all, beside 137 MB of table) behind
+//   two barriers; and the largest tile holds 1.25x the mean's crossings.
+//   So it walks pieces instead (built with the table: each tile's
+//   crossings cut into ceil(n / K_f) near-equal runs, K_f = WIN_KF = 4096),
+//   one CTA a piece, the piece's crossings taken flat, one aligned quad
+//   (16 B of loc, 16 B of val) a thread a step whatever the chunk sizes; d
+//   is read at each crossing through the read-only path (0.5 MB, in L2),
+//   with no staging and no barrier a chunk.  A thread sums its quad's
+//   crossings of one ray before its add into the CTA's shared y tile (G
+//   floats), which is stored, or added into y with global atomics when the
+//   tile is split.  Two quads a thread a step, strided or side by side,
+//   read slower than one (PERF.md section 6).  The shared adds (a
+//   compare-and-swap loop on this card) and the global ones sum in a
+//   run-to-run order.
 //   The backward was one CTA per window too, and three things held it at
 //   4x torch.mv's time (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
 //   section 6): the hottest window holds 4x the mean window's
@@ -116,24 +140,93 @@ constexpr int kBlock = 256;
 constexpr int kHistTile = 256;  // rays per CTA of routed_fwd_hist
 constexpr unsigned kFull = 0xffffffffu;
 
-// y += A.d over the voxel-major transpose: one warp per voxel.
-template <typename Weight>
+// y[kW·g .. kW·g + kW) += a: one kW-wide global atomic (float2 / float4
+// atomics exist for global memory on compute capability 9.x), or scalar
+// ones for the rays of a last group that n_rays cuts short.
+template <int kW>
+__device__ __forceinline__ void add_group(float* __restrict__ y, int g,
+                                          const float (&a)[kW], int n_rays) {
+  float* p = y + static_cast<long long>(g) * kW;
+  if (static_cast<long long>(g) * kW + kW <= n_rays) {
+    if constexpr (kW == 4) {
+      atomicAdd(reinterpret_cast<float4*>(p),
+                make_float4(a[0], a[1], a[2], a[3]));
+    } else if constexpr (kW == 2) {
+      atomicAdd(reinterpret_cast<float2*>(p), make_float2(a[0], a[1]));
+    } else {
+      atomicAdd(p, a[0]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < kW; ++j)
+    if (static_cast<long long>(g) * kW + j < n_rays) atomicAdd(p + j, a[j]);
+}
+
+// a[c] += x, c < kW held in a register (no local-memory index)
+template <int kW>
+__device__ __forceinline__ void add_to(float (&a)[kW], int c, float x) {
+#pragma unroll
+  for (int j = 0; j < kW; ++j)
+    if (c == j) a[j] += x;
+}
+
+// y += A.d over the voxel-major transpose: one warp per voxel, 32
+// consecutive crossings a step, one a lane; warp w takes voxel
+// (w % spread)·ceil(n_vox / spread) + w / spread, so that the warps in
+// flight add into the rays of distant voxels.  At kW = 1 each lane adds
+// its crossing with one global atomic.  At kW = 2 or 4 the lanes whose
+// rays lie in one aligned group g (rays kW·g .. kW·g + kW - 1; a voxel's
+// rays ascend, so they are consecutive lanes) are cut into runs of at most
+// kW lanes; the last lane of each gathers the run's values (kW - 1
+// shuffles of value and ray), sums them component by component and adds
+// them with one kW-wide atomic.  kW = 0 stores instead (a race whose
+// output is wrong: tools/fwd_sweep.py times the scatter without atomics).
+template <int kW, typename Weight>
 __global__ void __launch_bounds__(kBlock)
 routed_fwd_dense_kernel(const int* __restrict__ vox_ptr,
                         const int* __restrict__ ray,
                         const Weight* __restrict__ valT,
                         const float* __restrict__ d, float* __restrict__ y,
-                        int n_vox) {
-  const long long v =
+                        int n_vox, int n_rays, int spread) {
+  const long long w =
       (static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x) / kWarp;
+  const long long per = (n_vox + spread - 1) / spread;
+  const long long v = (w % spread) * per + w / spread;
   const int lane = threadIdx.x & (kWarp - 1);
-  if (v >= n_vox) return;
+  if (v >= n_vox) return;  // (the whole warp)
   const int beg = __ldg(vox_ptr + v);
   const int end = __ldg(vox_ptr + v + 1);
   if (beg == end) return;
   const float dv = __ldg(d + v);
-  for (int k = beg + lane; k < end; k += kWarp)
-    atomicAdd(y + __ldg(ray + k), load_w(valT + k) * dv);
+  for (int k = beg + lane; k - lane < end; k += kWarp) {
+    const bool live = k < end;
+    const int r = live ? __ldg(ray + k) : -1;
+    const float x = live ? load_w(valT + k) * dv : 0.f;
+    if constexpr (kW == 0) {
+      if (live) y[r] = x;  // plain stores, a race: the sweep's timing only
+    } else if constexpr (kW == 1) {
+      if (live) atomicAdd(y + r, x);
+    } else {
+      const int g = live ? r / kW : -1;  // dead lanes: the warp's tail
+      const int g_up = __shfl_up_sync(kFull, g, 1);
+      const unsigned starts = __ballot_sync(kFull, lane == 0 || g_up != g);
+      // this lane's place in its run of one group, then in its kW-run
+      const int pos =
+          (lane - (31 - __clz(starts & (kFull >> (31 - lane))))) % kW;
+      float a[kW] = {};
+      add_to<kW>(a, r % kW, x);
+#pragma unroll
+      for (int off = 1; off < kW; ++off) {
+        const float xo = __shfl_up_sync(kFull, x, off);
+        const int ro = __shfl_up_sync(kFull, r, off);
+        if (off <= pos) add_to<kW>(a, ro % kW, xo);
+      }
+      const bool last = lane == kWarp - 1 || ((starts >> (lane + 1)) & 1u) ||
+                        pos == kW - 1;
+      if (live && last) add_group<kW>(y, g, a, n_rays);
+    }
+  }
 }
 
 // Inclusive sum of x over the lanes of this warp that hold the same key,
@@ -188,76 +281,124 @@ routed_fwd_hist_kernel(const int* __restrict__ row_ptr,
   for (int i = threadIdx.x; i < n; i += kBlock) y[r0 + i] = y_s[i];
 }
 
-// The window forwards (routed_fwd_window, routed_fwd_densew): a CTA of
-// kWinBlock threads is kGroups groups of
+// routed_fwd_densew: a CTA of kWinBlock threads is kGroups groups of
 // kGroupThreads, each walking its own share of the CTA's chunks (chunk
-// c, c + kGroups, ...) with its own staging buffer and its own named
-// barrier, so that several chunks' loads are in flight at once (one CTA a
-// tile or window is only about two CTAs an SM at the flagship).  Each
-// thread issues kUnroll crossings' table loads before it updates shared
-// memory.  The groups add into the CTA's one output tile in shared memory.
+// c, c + kGroups, ...) so that several chunks' loads are in flight at once
+// (one CTA a window).  Each thread issues kUnroll crossings' table loads
+// before it updates memory.
 constexpr int kWinBlock = 1024;
 constexpr int kGroups = 8;
 constexpr int kGroupThreads = kWinBlock / kGroups;
 constexpr int kUnroll = 4;
 
-// barrier of the kGroupThreads threads of group g (named barrier g + 1;
-// barrier 0 is __syncthreads)
-__device__ __forceinline__ void group_sync(int g) {
-  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "n"(kGroupThreads)
-               : "memory");
+
+// The packed offsets loc[k0..k0+3] and lengths val[k0..k0+3] of the
+// 4-aligned quad at k0 of an n-crossing table: two 16 B loads (the
+// table's base is aligned; ops/routed_project.py checks it), or scalar
+// ones (0 past n) for the table's last, partial quad.
+__device__ __forceinline__ void load_quad(const int* __restrict__ loc,
+                                          const float* __restrict__ val,
+                                          int k0, int n, int (&p)[4],
+                                          float (&w)[4]) {
+  if (k0 + 4 <= n) {
+    const int4 pv = __ldg(reinterpret_cast<const int4*>(loc + k0));
+    const float4 wv = __ldg(reinterpret_cast<const float4*>(val + k0));
+    p[0] = pv.x, p[1] = pv.y, p[2] = pv.z, p[3] = pv.w;
+    w[0] = wv.x, w[1] = wv.y, w[2] = wv.z, w[3] = wv.w;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    p[j] = k0 + j < n ? __ldg(loc + k0 + j) : 0;
+    w[j] = k0 + j < n ? __ldg(val + k0 + j) : 0.f;
+  }
 }
 
-// y = A.d over the window chunk table: one CTA per ray tile, its chunks in
-// window order.  Shared memory: y_s[G], then one d_s[W] a group.  The
-// crossings of a chunk are sorted by ray, so a warp sums each ray's run
-// before one shared add.
-__global__ void __launch_bounds__(kWinBlock)
+// y = A.d over the window chunk table: one CTA of kThreads per piece (a
+// run of at most K_f crossings of one ray tile; piece_ptr / piece_chunk:
+// its first crossing and the chunk that holds it).  The piece's crossings
+// are walked flat, one aligned quad a thread a step, whatever the chunk
+// sizes: the chunks' ends and window offsets sit in shared memory kThreads
+// at a time, each thread advances its chunk as its position grows and
+// reads d at each crossing through the read-only path.  A thread sums its
+// quad's consecutive crossings of one ray (a chunk's crossings are sorted
+// by ray) before one add into the shared y tile.  The CTA then stores its
+// tile (the piece is the whole tile) or adds it into y with one global
+// atomic a nonzero ray (the tile is split; the C entry zeroes y).
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
 routed_fwd_window_kernel(const int* __restrict__ tile_ptr,
                          const int* __restrict__ ckey,
                          const int* __restrict__ cptr,
                          const int* __restrict__ loc,
                          const float* __restrict__ val,
+                         const int* __restrict__ piece_ptr,
+                         const int* __restrict__ piece_chunk,
                          const float* __restrict__ d, float* __restrict__ y,
-                         int n_win, int n_rays, int n_vox, int G, int W) {
-  extern __shared__ float smem[];
-  const int g = threadIdx.x / kGroupThreads;
-  const int gt = threadIdx.x % kGroupThreads;
-  float* y_s = smem;
-  float* d_s = smem + G + g * W;
-  const int t = blockIdx.x;
+                         int n_win, int n_rays, int n_chunks, int G, int W) {
+  extern __shared__ float y_s[];
+  __shared__ int end_s[kThreads];  // each chunk's end, cut at the piece's
+  __shared__ int v0_s[kThreads];   // its window's first voxel
+  const int tid = threadIdx.x;
+  const int k_beg = __ldg(piece_ptr + blockIdx.x);
+  const int k_end = __ldg(piece_ptr + blockIdx.x + 1);
+  const int c_beg = __ldg(piece_chunk + blockIdx.x);
+  const int t = __ldg(ckey + c_beg) / n_win;
   const int r0 = t * G;
   const int nr = min(G, n_rays - r0);
-  for (int i = threadIdx.x; i < nr; i += kWinBlock) y_s[i] = 0.f;
-  __syncthreads();
-  const int c_end = __ldg(tile_ptr + t + 1);
-  for (int c = __ldg(tile_ptr + t) + g; c < c_end; c += kGroups) {
-    const int v0 = (__ldg(ckey + c) % n_win) * W;
-    const int nv = min(W, n_vox - v0);
-    group_sync(g);  // the group's previous chunk is done with d_s
-    for (int i = gt; i < nv; i += kGroupThreads) d_s[i] = __ldg(d + v0 + i);
-    group_sync(g);
-    const int k_beg = __ldg(cptr + c), k_end = __ldg(cptr + c + 1);
-    for (int k0 = k_beg; k0 < k_end; k0 += kUnroll * kGroupThreads) {
-      unsigned p[kUnroll];
-      float w[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int k = k0 + u * kGroupThreads + gt;
-        p[u] = k < k_end ? static_cast<unsigned>(__ldg(loc + k)) : 0u;
-        w[u] = k < k_end ? __ldg(val + k) : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const bool live = k0 + u * kGroupThreads + gt < k_end;
-        const int key = live ? static_cast<int>(p[u] >> 16) : -1;
-        float x = live ? w[u] * d_s[p[u] & 0xffffu] : 0.f;
-        if (warp_run_sum(key, x)) atomicAdd(y_s + key, x);
-      }
+  const int nnz = __ldg(cptr + n_chunks);
+  for (int i = tid; i < nr; i += kThreads) y_s[i] = 0.f;
+  for (int cb = c_beg, b_beg = k_beg; b_beg < k_end; cb += kThreads) {
+    __syncthreads();  // y_s is zeroed; the last batch is done with end_s
+    if (cb + tid < n_chunks) {
+      end_s[tid] = min(__ldg(cptr + cb + tid + 1), k_end);
+      v0_s[tid] = (__ldg(ckey + cb + tid) % n_win) * W;
+    } else {
+      end_s[tid] = k_end;
     }
+    __syncthreads();
+    const int b_end = end_s[kThreads - 1];
+    int q = 0;  // this thread's chunk in the batch, advanced as k grows
+    for (int k0 = (b_beg & ~3) + 4 * tid; k0 < b_end; k0 += 4 * kThreads) {
+      int p[4];
+      float x[4];
+      load_quad(loc, val, k0, nnz, p, x);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = k0 + i;
+        if (k < b_beg || k >= b_end) {
+          p[i] = -1;
+          continue;
+        }
+        while (end_s[q] <= k) ++q;
+        x[i] *= __ldg(d + v0_s[q] + (p[i] & 0xffff));
+        p[i] >>= 16;  // the ray's offset in the tile
+      }
+      int key = -1;
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (p[i] < 0) continue;
+        if (p[i] != key) {
+          if (key >= 0) atomicAdd(y_s + key, acc);
+          key = p[i];
+          acc = x[i];
+        } else {
+          acc += x[i];
+        }
+      }
+      if (key >= 0) atomicAdd(y_s + key, acc);
+    }
+    b_beg = b_end;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < nr; i += kWinBlock) y[r0 + i] = y_s[i];
+  if (k_beg == __ldg(cptr + __ldg(tile_ptr + t)) &&
+      k_end == __ldg(cptr + __ldg(tile_ptr + t + 1))) {
+    for (int i = tid; i < nr; i += kThreads) y[r0 + i] = y_s[i];
+  } else {
+    for (int i = tid; i < nr; i += kThreads)
+      if (y_s[i] != 0.f) atomicAdd(y + r0 + i, y_s[i]);
+  }
 }
 
 // routed_bwd_window: one CTA of kItemBlock threads per work item of the
@@ -432,19 +573,40 @@ unsigned cdiv(long long n, long long m) {
 
 // The launches behind the weight-templated C entries, one instantiation a
 // weight type.  Each returns cudaGetLastError() right after its launch.
+template <int kW, typename Weight>
+void launch_fwd_dense_w(const void* vox_ptr, const void* ray,
+                        const void* valT, const void* d, void* y, int n_vox,
+                        int n_rays, int spread, cudaStream_t s) {
+  const long long warps = (n_vox + spread - 1) / spread * spread;
+  routed_fwd_dense_kernel<kW, Weight>
+      <<<cdiv(warps * kWarp, kBlock), kBlock, 0, s>>>(
+          static_cast<const int*>(vox_ptr), static_cast<const int*>(ray),
+          static_cast<const Weight*>(valT), static_cast<const float*>(d),
+          static_cast<float*>(y), n_vox, n_rays, spread);
+}
+
+// width: the atomic width kW, 1, 2 or 4 (another is refused)
 template <typename Weight>
 int launch_fwd_dense(const void* vox_ptr, const void* ray, const void* valT,
                      const void* d, void* y, int n_vox, int n_rays,
-                     void* stream) {
+                     int width, int spread, void* stream) {
+  if ((width < 0 || width > 4 || width == 3) || spread < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(y, 0, sizeof(float) * n_rays, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_vox > 0)
-    routed_fwd_dense_kernel<Weight><<<cdiv(static_cast<long long>(n_vox) * kWarp,
-                                      kBlock), kBlock, 0, s>>>(
-        static_cast<const int*>(vox_ptr), static_cast<const int*>(ray),
-        static_cast<const Weight*>(valT), static_cast<const float*>(d),
-        static_cast<float*>(y), n_vox);
+  if (err != cudaSuccess || n_vox == 0) return static_cast<int>(err);
+  if (width == 4)
+    launch_fwd_dense_w<4, Weight>(vox_ptr, ray, valT, d, y, n_vox, n_rays,
+                                  spread, s);
+  else if (width == 2)
+    launch_fwd_dense_w<2, Weight>(vox_ptr, ray, valT, d, y, n_vox, n_rays,
+                                  spread, s);
+  else if (width == 1)
+    launch_fwd_dense_w<1, Weight>(vox_ptr, ray, valT, d, y, n_vox, n_rays,
+                                  spread, s);
+  else
+    launch_fwd_dense_w<0, Weight>(vox_ptr, ray, valT, d, y, n_vox, n_rays,
+                                  spread, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -478,6 +640,23 @@ int launch_fwd_densew(const void* win_ptr, const void* bwd_order,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kThreads>
+void launch_fwd_window_t(const void* tile_ptr, const void* ckey,
+                         const void* cptr, const void* loc, const void* val,
+                         const void* piece_ptr, const void* piece_chunk,
+                         const void* d, void* y, int n_win, int n_rays,
+                         int n_chunks, int n_pieces, int G, int W,
+                         cudaStream_t s) {
+  routed_fwd_window_kernel<kThreads>
+      <<<n_pieces, kThreads, sizeof(float) * G, s>>>(
+          static_cast<const int*>(tile_ptr), static_cast<const int*>(ckey),
+          static_cast<const int*>(cptr), static_cast<const int*>(loc),
+          static_cast<const float*>(val),
+          static_cast<const int*>(piece_ptr),
+          static_cast<const int*>(piece_chunk), static_cast<const float*>(d),
+          static_cast<float*>(y), n_win, n_rays, n_chunks, G, W);
+}
+
 }  // namespace
 
 // C interface: device pointers and the stream as void*, sizes as int.
@@ -486,17 +665,18 @@ int launch_fwd_densew(const void* win_ptr, const void* bwd_order,
 extern "C" {
 
 int routed_fwd_dense(const void* vox_ptr, const void* ray, const void* valT,
-                     const void* d, void* y, int n_vox, int n_rays,
-                     void* stream) {
+                     const void* d, void* y, int n_vox, int n_rays, int width,
+                     int spread, void* stream) {
   return launch_fwd_dense<float>(vox_ptr, ray, valT, d, y, n_vox, n_rays,
-                                 stream);
+                                 width, spread, stream);
 }
 
 int routed_fwd_dense_bf16(const void* vox_ptr, const void* ray,
                           const void* valT, const void* d, void* y,
-                          int n_vox, int n_rays, void* stream) {
+                          int n_vox, int n_rays, int width, int spread,
+                          void* stream) {
   return launch_fwd_dense<__nv_bfloat16>(vox_ptr, ray, valT, d, y, n_vox,
-                                         n_rays, stream);
+                                         n_rays, width, spread, stream);
 }
 
 int routed_fwd_hist(const void* row_ptr, const void* col, const void* val,
@@ -511,18 +691,24 @@ int routed_fwd_hist_bf16(const void* row_ptr, const void* col,
                                         stream);
 }
 
+// threads: the CTA size, 128, 256, 512 or 1024 (another is refused)
 int routed_fwd_window(const void* tile_ptr, const void* ckey,
                       const void* cptr, const void* loc, const void* val,
+                      const void* piece_ptr, const void* piece_chunk,
                       const void* d, void* y, int n_win, int n_rays,
-                      int n_vox, int G, int W, void* stream) {
-  if (n_rays > 0)
-    routed_fwd_window_kernel<<<cdiv(n_rays, G), kWinBlock,
-                               sizeof(float) * (G + kGroups * W),
-                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(tile_ptr), static_cast<const int*>(ckey),
-        static_cast<const int*>(cptr), static_cast<const int*>(loc),
-        static_cast<const float*>(val), static_cast<const float*>(d),
-        static_cast<float*>(y), n_win, n_rays, n_vox, G, W);
+                      int n_chunks, int n_pieces, int G, int W, int threads,
+                      void* stream) {
+  if (threads != 128 && threads != 256 && threads != 512 && threads != 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(y, 0, sizeof(float) * n_rays, s);
+  if (err != cudaSuccess || n_pieces == 0) return static_cast<int>(err);
+  auto* launch = threads == 128   ? launch_fwd_window_t<128>
+                 : threads == 256 ? launch_fwd_window_t<256>
+                 : threads == 512 ? launch_fwd_window_t<512>
+                                  : launch_fwd_window_t<1024>;
+  launch(tile_ptr, ckey, cptr, loc, val, piece_ptr, piece_chunk, d, y, n_win,
+         n_rays, n_chunks, n_pieces, G, W, s);
   return static_cast<int>(cudaGetLastError());
 }
 

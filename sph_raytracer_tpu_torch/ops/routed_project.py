@@ -24,7 +24,8 @@ instead (:func:`build_window_tables`, :class:`WindowTables`): the live
 crossings grouped into (tile of :data:`WIN_G` rays, window of
 :data:`WIN_W` voxels) chunks, 8 B a crossing, and the backward's work
 items (each window's chunks cut into runs of at most :data:`WIN_K`
-crossings, 8 B an item).
+crossings, 8 B an item) and the forward's pieces (each tile's crossings
+cut into runs of at most :data:`WIN_KF`, 8 B a piece).
 
 Kernels (``csrc/routed_project.cu``, ``csrc/routed_variants.cu``), each
 beside its plain PyTorch version and a launch counter in :data:`LAUNCHES`
@@ -80,9 +81,14 @@ __all__ = [
     "WIN_G",
     "WIN_W",
     "WIN_K",
+    "WIN_KF",
+    "WIN_FWD_THREADS",
+    "DENSE_WIDTH",
+    "DENSE_SPREAD",
     "SCATTER_TILE",
     "SCATTER_SLOTS",
     "scatter_atomics",
+    "dense_fwd_atomics",
     "build_tables",
     "build_window_tables",
     "build_for",
@@ -200,18 +206,26 @@ def build_tables(lin, lens, n_vox: int, transpose: bool = True,
     return RoutedTables(row_ptr, col, val, vox_ptr, ray, valT, R, n_vox)
 
 
-# The window chunk table's tile and window sizes, chosen for the card: at
-# the flagship (250,000 rays, 125,000 voxels) the forward launches 245 CTAs,
-# more than the H100's 132 SMs, and a CTA's eight chunk groups stage G + 8·W
-# floats of shared memory (12 KB; csrc/routed_variants.cu).  The in-chunk
-# offsets are packed in 16 bits each (G <= 32768 keeps the packed word
-# non-negative).
+# The window chunk table's tile and window sizes: at the flagship (250,000
+# rays, 125,000 voxels) 245 tiles of G rays and 489 windows of W voxels.
+# The in-chunk offsets are packed in 16 bits each (G <= 32768 keeps the
+# packed word non-negative); the forward holds a G-float y tile and the
+# backward and routed_fwd_densew a W-float window in shared memory
+# (csrc/routed_variants.cu).
 WIN_G = 1024
 WIN_W = 256
 # the backward's work item: at most this many crossings (a larger chunk is
 # an item of its own); the flagship's hottest window holds ~141,700
 # crossings and its largest chunk ~2,400 (tools/bwd_sweep.py times others)
 WIN_K = 4096
+# the forward's piece: each tile's crossings cut into the fewest near-equal
+# runs of at most this many (a cut may fall inside a chunk), one CTA of
+# WIN_FWD_THREADS threads a piece; the flagship's tiles hold ~69,800
+# crossings on average, 87,600 at most.  tools/fwd_sweep.py times others:
+# on an H100 (700 W) KF 2,048-16,384 at 128-512 threads read 0.073-0.094
+# ms there, one piece a tile 0.088-0.343 ms (PERF.md section 6)
+WIN_KF = 4096
+WIN_FWD_THREADS = 256
 
 
 class WindowTables(NamedTuple):
@@ -234,7 +248,12 @@ class WindowTables(NamedTuple):
       ``bwd_order``, and ``item_win`` (n_items,) the window of each: every
       non-empty window's range cut greedily at chunk boundaries into runs
       of at most ``K`` crossings (a chunk of more is an item alone); an
-      empty window has no item."""
+      empty window has no item;
+    * ``piece_ptr`` (n_pieces+1,) the forward's pieces as crossing offsets,
+      and ``piece_chunk`` (n_pieces,) the chunk that holds each piece's
+      first crossing: every non-empty tile's crossing range cut into
+      ``ceil(n / KF)`` near-equal runs (a cut may fall inside a chunk); an
+      empty tile has no piece."""
 
     loc: torch.Tensor
     val: torch.Tensor
@@ -245,11 +264,14 @@ class WindowTables(NamedTuple):
     win_ptr: torch.Tensor
     item_ptr: torch.Tensor
     item_win: torch.Tensor
+    piece_ptr: torch.Tensor
+    piece_chunk: torch.Tensor
     n_rays: int
     n_vox: int
     G: int
     W: int
     K: int
+    KF: int
 
     @property
     def nnz(self) -> int:
@@ -268,12 +290,16 @@ class WindowTables(NamedTuple):
         return int(self.item_ptr.shape[0]) - 1
 
     @property
+    def n_pieces(self) -> int:
+        return int(self.piece_ptr.shape[0]) - 1
+
+    @property
     def device(self) -> torch.device:
         return self.loc.device
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in self[:9])
+        return sum(t.numel() * t.element_size() for t in self[:11])
 
 
 def _work_items(n, win_ptr, K):
@@ -300,21 +326,44 @@ def _work_items(n, win_ptr, K):
         torch.int32)
 
 
+def _pieces(cptr, tile_ptr, KF):
+    """The forward's pieces over chunk offsets ``cptr`` and tiles
+    ``tile_ptr``: ``(piece_ptr, piece_chunk)``, each non-empty tile's
+    crossings cut into ``ceil(n / KF)`` runs whose sizes differ by at most
+    one."""
+    cp, tp = cptr.long(), tile_ptr.long()
+    beg = cp[tp[:-1]]
+    n = cp[tp[1:]] - beg
+    per = (n + KF - 1) // KF                  # pieces a tile: 0 when empty
+    tile = torch.repeat_interleave(torch.arange(n.shape[0], device=n.device),
+                                   per)
+    j = torch.arange(tile.shape[0], device=n.device) - (
+        torch.cumsum(per, 0) - per)[tile]
+    start = beg[tile] + (n[tile] * j) // per[tile]
+    chunk = torch.searchsorted(cp, start, right=True) - 1
+    return (torch.cat([start, cp[-1:]]).to(torch.int32),
+            chunk.to(torch.int32))
+
+
 def build_window_tables(lin, lens, n_vox: int, G: int = WIN_G,
-                        W: int = WIN_W, K: int = WIN_K,
+                        W: int = WIN_W, K: int = WIN_K, KF: int = WIN_KF,
                         w_dtype: torch.dtype = torch.float32) -> WindowTables:
-    """Build the window chunk table, and the backward's work items of at
-    most ``K`` crossings, from a traced (lin, lens) pair on its device
-    (zero-length slots dropped).  ``w_dtype`` is the dtype of ``val``:
-    bfloat16 tables feed ``routed_fwd_densew`` alone (B7a / B7b take
-    float32)."""
+    """Build the window chunk table, the backward's work items of at most
+    ``K`` crossings and the forward's pieces of at most ``KF`` from a
+    traced (lin, lens) pair on its device (zero-length slots dropped).
+    ``w_dtype`` is the dtype of ``val``: bfloat16 tables feed
+    ``routed_fwd_densew`` alone (B7a / B7b take float32)."""
     if not (0 < G <= 2 ** 15 and 0 < W <= 2 ** 16):
         raise ValueError(f"tile G={G} / window W={W} must fit 15 / 16 bits")
-    if 4 * (G + 8 * W) > 48 * 1024:
-        raise ValueError(f"tile G={G} / window W={W}: the window forward's "
-                         "shared memory would pass 48 KB")
+    if 4 * max(G, W) > 40 * 1024:
+        raise ValueError(f"tile G={G} / window W={W}: the window kernels' "
+                         "shared memory (a G-float y tile or a W-float "
+                         "window, beside up to 8 KB of chunk lists) would "
+                         "pass 48 KB")
     if K < 1:
         raise ValueError(f"work item size K={K} must be positive")
+    if KF < 1:
+        raise ValueError(f"piece size KF={KF} must be positive")
     R, live, counts, nnz = _live(lin, lens, n_vox)
     dev = lin.device
     n_tiles, n_win = -(-R // G), -(-n_vox // W)
@@ -341,9 +390,11 @@ def build_window_tables(lin, lens, n_vox: int, G: int = WIN_G,
     win_ptr = ptr(cwin, n_win)
     item_ptr = _work_items(per_chunk[bwd_order], win_ptr, K)
     item_win = cwin[bwd_order][item_ptr[:-1].long()].to(torch.int32)
-    return WindowTables(loc, val, cptr, ckey.to(torch.int32),
-                        ptr(ctile, n_tiles), bwd_order.to(torch.int32),
-                        win_ptr, item_ptr, item_win, R, n_vox, G, W, K)
+    tile_ptr = ptr(ctile, n_tiles)
+    return WindowTables(loc, val, cptr, ckey.to(torch.int32), tile_ptr,
+                        bwd_order.to(torch.int32), win_ptr, item_ptr,
+                        item_win, *_pieces(cptr, tile_ptr, KF), R, n_vox, G,
+                        W, K, KF)
 
 
 # ---------------------------------------------------------------------------
@@ -454,6 +505,15 @@ def _f32_only(name, w):
                          f"got {w.dtype}")
 
 
+def _aligned(tables, *names):
+    """``routed_fwd_window``'s check: each named table starts on a 16 B
+    boundary (its vector loads read 4 entries from a 4-aligned index)."""
+    for name in names:
+        if getattr(tables, name).data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the "
+                             "kernel reads it in aligned quads)")
+
+
 def _check(x, n, what, tables):
     """Validate a kernel input: 1-D float32 of length n on the tables'
     CUDA device."""
@@ -489,6 +549,42 @@ def scatter_atomics(t: RoutedTables, tile: int = SCATTER_TILE) -> int:
     tiles)."""
     rows = _row_ids(t.row_ptr, t.nnz)
     return int(torch.unique((rows // tile) * t.n_vox + t.col.long()).numel())
+
+
+# routed_fwd_dense's atomic width: the lanes that hold rays of one aligned
+# group of DENSE_WIDTH rays sum their values (at most DENSE_WIDTH lanes a
+# sum) before one DENSE_WIDTH-wide global atomic (1, 2 or 4); and its warp
+# order: warp w takes voxel (w % DENSE_SPREAD)·ceil(V / DENSE_SPREAD) +
+# w // DENSE_SPREAD, so that the warps in flight scatter into rays of
+# distant voxels.  tools/fwd_sweep.py times others: on an H100 (700 W) at
+# the flagship the spread moved it 7-10 %, the width (half the atomics at
+# 4) 1.5-5 % (PERF.md section 6)
+DENSE_WIDTH = 4
+DENSE_SPREAD = 512
+
+
+def dense_fwd_atomics(t: RoutedTables, width: int = DENSE_WIDTH) -> int:
+    """The global atomics ``routed_fwd_dense`` issues at atomic ``width``:
+    a warp takes 32 consecutive crossings of one voxel's list a step, and
+    each run of equal ``ray // width`` in a step issues one atomic for
+    every ``width`` lanes of it (one a crossing, ``t.nnz``, at width 1);
+    the last group of a ray count that is not a multiple of ``width``
+    takes one scalar atomic a ray of it instead."""
+    k = torch.arange(t.nnz, device=t.ray.device)
+    vp = t.vox_ptr.long()
+    pos = k - vp[:-1][_row_ids(t.vox_ptr, t.nnz)]   # place in the list
+    g = t.ray.long() // width
+    start = pos % 32 == 0
+    start[1:] |= g[1:] != g[:-1]
+    run0 = torch.cummax(torch.where(start, k, 0), 0).values
+    last = torch.ones_like(start)
+    last[:-1] = start[1:]
+    flush = last | ((k - run0) % width == width - 1)
+    n = int(flush.sum())
+    tail = t.n_rays % width
+    if tail:
+        n += (tail - 1) * int((flush & (g == t.n_rays // width)).sum())
+    return n
 
 
 def routed_fwd(t: RoutedTables, d):
@@ -548,8 +644,8 @@ def routed_bwd_scatter(t: RoutedTables, dy, counts=None):
 
 
 def routed_fwd_dense(t: RoutedTables, d):
-    """y (R,) = A·d over the voxel-major transpose, by atomics; kernel
-    ``routed_fwd_dense``."""
+    """y (R,) = A·d over the voxel-major transpose, by ``DENSE_WIDTH``-wide
+    atomics over aligned ray groups; kernel ``routed_fwd_dense``."""
     if t.vox_ptr is None:
         raise ValueError("routed_fwd_dense needs the voxel-major transpose "
                          "(build_tables(..., transpose=True))")
@@ -559,7 +655,7 @@ def routed_fwd_dense(t: RoutedTables, d):
     d = _check(d, t.n_vox, "density", t)
     y = torch.empty(t.n_rays, dtype=torch.float32, device=d.device)
     launch(entry, (t.vox_ptr, t.ray, t.valT, d, y),
-           (t.n_vox, t.n_rays))
+           (t.n_vox, t.n_rays, DENSE_WIDTH, DENSE_SPREAD))
     return y
 
 
@@ -577,16 +673,20 @@ def routed_fwd_hist(t: RoutedTables, d):
 
 
 def routed_fwd_window(t: WindowTables, d):
-    """y (R,) = A·d over the window chunk table; kernel
+    """y (R,) = A·d over the window chunk table, one CTA of
+    ``WIN_FWD_THREADS`` a piece (``t.piece_ptr``); kernel
     ``routed_fwd_window``."""
     _f32_only("routed_fwd_window", t.val)
     if d.device.type == "cpu":
         return routed_fwd_window_ref(t, d)
     d = _check(d, t.n_vox, "density", t)
+    _aligned(t, "loc", "val")
     y = torch.empty(t.n_rays, dtype=torch.float32, device=d.device)
     launch("routed_fwd_window",
-           (t.tile_ptr, t.ckey, t.cptr, t.loc, t.val, d, y),
-           (t.n_win, t.n_rays, t.n_vox, t.G, t.W))
+           (t.tile_ptr, t.ckey, t.cptr, t.loc, t.val, t.piece_ptr,
+            t.piece_chunk, d, y),
+           (t.n_win, t.n_rays, len(t.ckey), t.n_pieces, t.G, t.W,
+            WIN_FWD_THREADS))
     return y
 
 

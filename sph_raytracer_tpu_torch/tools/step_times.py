@@ -6,9 +6,12 @@ and the two backward kernels of the 'off' and window engines::
 One ``Operator`` a config on the flagship (50³ grid, 50 views of 50×100
 pixels; ``wfwd_probe.CONFIGS['flagship']``); its step is ``bench.py``'s
 (forward → mean-square loss → gradient → update), timed with CUDA events
-over 30 steps after 5 warm-up ones.  Beside the steps, ``routed_bwd_scatter``
-(B3) on the ``'off'`` tables and ``routed_bwd_window`` (B7b) on the window
-tables, each the mean of 20 launches after 3.  It reaches the package only
+over 30 steps after 5 warm-up ones.  Beside the steps, the forward and the
+backward kernel of the ``'both'``, ``'off'`` and window configs
+(``routed_fwd_dense`` (B5), ``routed_bwd_gather`` (B2), ``routed_fwd``
+(B1), ``routed_bwd_scatter`` (B3), ``routed_fwd_window`` (B7a),
+``routed_bwd_window`` (B7b)) on their own tables, each the mean of 20
+launches after 3.  It reaches the package only
 through names that checkouts from the window-major probe on have too, so
 that one call can time two checkouts in turns: ``PYTHONPATH=<checkout>
 python <this file>``.  Prints one JSON object.  Runs on the card only.
@@ -24,6 +27,7 @@ from sph_raytracer_tpu_torch.tools.wfwd_probe import _orbit, cuda_ms
 CONFIGS = {  # name: Operator keyword arguments
     "auto": dict(),
     "off": dict(config=prt.TraceConfig(routed_dense="off")),
+    "both": dict(config=prt.TraceConfig(routed_dense="both")),
     "fwd": dict(config=prt.TraceConfig(routed_dense="fwd")),
     "window": dict(config=prt.TraceConfig(routed_banded=False)),
     "fused": dict(mode="fused"),
@@ -55,10 +59,12 @@ def main():
 
         out["step_ms"][name] = cuda_ms(step, n=30, warm=5)
         t = op._tables
-        if name in ("off", "window"):
+        if name in ("both", "off", "window"):
+            d = torch.rand(t.n_vox, generator=gen).to(dev)
             dy = torch.randn(t.n_rays, generator=gen).to(dev)
-            bwd = op._bwd
-            out["kernel_ms"][bwd.__name__] = cuda_ms(lambda: bwd(t, dy))
+            for kern, x in ((op._fwd, d), (op._bwd, dy)):
+                out["kernel_ms"][kern.__name__] = cuda_ms(
+                    lambda: kern(t, x))
         del op
     print(json.dumps(out), flush=True)
 

@@ -137,7 +137,8 @@ def probe(config="vol100", device=None, w_dtype="f32"):
     runs, atomics = densew_atomics(win)
     common = (win.ckey, win.cptr, win.loc)
     reads = {"routed_fwd": (csr, (csr.row_ptr, csr.col, csr.val)),
-             "routed_fwd_window": (win32, (win32.tile_ptr, *common,
+             "routed_fwd_window": (win32, (win32.tile_ptr, win32.piece_ptr,
+                                           win32.piece_chunk, *common,
                                            win32.val)),
              "routed_fwd_densew": (win, (win.win_ptr, win.bwd_order,
                                          *common, win.val))}

@@ -9,8 +9,10 @@ Each kernel is held against its plain PyTorch version on the same CUDA
 tensors (the fused kernel at every padded crossing count it is built for,
 and with the lerp; the routed variants on synthetic tables with empty
 rays, empty windows and a last tile of one ray; the window backward on a
-window cut into several work items, the scatter backward on tiles that
-overflow its shared table), each ``<name>_bf16`` instantiation against its
+window cut into several work items, the window forward on tiles cut into
+several pieces at each CTA size, the dense forward at each atomic width and
+at ray counts that are not a multiple of 4, the scatter backward on tiles
+that overflow its shared table), each ``<name>_bf16`` instantiation against its
 plain version on bf16 tables, and one training step of each routed
 configuration (f32 and bf16 weights) and of fused mode on the card
 against the CPU.
@@ -23,6 +25,7 @@ import sph_raytracer_tpu_torch as prt
 from sph_raytracer_tpu_torch.ops import fused_project as fp
 from sph_raytracer_tpu_torch.ops import routed_project as rp
 from sph_raytracer_tpu_torch.ops.trace import GridSpec
+from sph_raytracer_tpu_torch.tools import fwd_sweep
 
 pytestmark = pytest.mark.gpu
 
@@ -186,6 +189,66 @@ def test_window_backward_splits_a_hot_window(cuda, G, K):
                                atol=1e-5 * float(want.abs().max()))
     assert _adjoint_rel(rp.routed_fwd_window, rp.routed_bwd_window, t, gen,
                         cuda) <= 1e-5
+
+
+# (G, W, KF, V): the defaults (tiles of ~26,000 crossings cut into
+# pieces, the last tile one ray in one piece); windows of one voxel (a
+# tile's one piece holds 2,000 chunks, more than a CTA's batch of chunk
+# ends); small pieces that cut chunks
+@pytest.mark.parametrize("G,W,KF,V", [(rp.WIN_G, rp.WIN_W, rp.WIN_KF, 600),
+                                      (1024, 1, 10 ** 6, 2000),
+                                      (64, 128, 100, 600)])
+def test_window_forward_splits_hot_tiles(cuda, G, W, KF, V):
+    """routed_fwd_window over tiles cut into pieces whose partial tiles
+    meet in global atomics, at every CTA size, against the plain version;
+    the adjoint identity with routed_bwd_window."""
+    lin, lens = _synthetic(5, R=2049, V=V, M=40,
+                           vox=np.r_[0:256, 400:420] if V == 600 else None)
+    t = rp.build_window_tables(lin.to(cuda), lens.to(cuda), V, G=G, W=W,
+                               KF=KF)
+    assert (t.n_pieces > t.n_tiles) == (KF < 10 ** 6)
+    assert int(t.tile_ptr[-1] - t.tile_ptr[-2]) >= 1  # the last tile's ray
+    gen = torch.Generator().manual_seed(5)
+    d = torch.rand(V, generator=gen).to(cuda)
+    want = rp.routed_fwd_window_ref(t, d)
+    before = rp.LAUNCHES["routed_fwd_window"]
+    for threads in fwd_sweep.WINDOW_THREADS:
+        got = fwd_sweep.window_fwd(t, d, threads)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-5 * float(want.abs().max()))
+    torch.testing.assert_close(rp.routed_fwd_window(t, d), want, rtol=1e-4,
+                               atol=1e-5 * float(want.abs().max()))
+    assert rp.LAUNCHES["routed_fwd_window"] == before + 5
+    assert _adjoint_rel(rp.routed_fwd_window, rp.routed_bwd_window, t, gen,
+                        cuda) <= 1e-5
+
+
+@pytest.mark.parametrize("R", [601, 602, 603])
+def test_dense_forward_groups(cuda, R):
+    """routed_fwd_dense (f32 and bf16) on 20 voxel lists of ~250 ascending
+    rays each (some listed twice), so 4-ray groups straddle a warp's
+    32-crossing steps, at R ≡ 1, 2, 3 (mod 4), where the last group is cut
+    short: at every atomic width and warp order against the plain version,
+    and the adjoint identity with routed_bwd_gather and
+    routed_bwd_scatter."""
+    lin, lens = _synthetic(R, R=R, V=20, M=12, empty=0.05)
+    gen = torch.Generator().manual_seed(R)
+    d = torch.rand(20, generator=gen).to(cuda)
+    for w_dtype in (torch.float32, torch.bfloat16):
+        t = rp.build_tables(lin.to(cuda), lens.to(cuda), 20, w_dtype=w_dtype)
+        assert bool((t.ray == R - 1).any())
+        assert int(torch.diff(t.vox_ptr).min()) > 32
+        want = rp.routed_fwd_dense_ref(t, d)
+        for width in (1, 2, 4):  # (width 0, plain stores, is timed only)
+            for spread in fwd_sweep.DENSE_SPREADS:
+                got = fwd_sweep.dense_fwd(t, d, width, spread)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(
+                    got, want, rtol=1e-4, atol=1e-5 * float(want.abs().max()))
+        for bwd in (rp.routed_bwd_gather, rp.routed_bwd_scatter):
+            assert _adjoint_rel(rp.routed_fwd_dense, bwd, t, gen,
+                                cuda) <= 1e-5
 
 
 def test_scatter_table_overflow(cuda):

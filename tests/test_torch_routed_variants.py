@@ -247,23 +247,24 @@ def test_new_wrappers_take_plain_version_only_on_cpu(traced):
     assert set(rp.LAUNCHES.values()) == {0}
 
 
-def _hot_window_table(K):
+def _hot_window_table(K, KF=rp.WIN_KF):
     """A hand-made table with one hot window: 40 rays (5 tiles of 8) cross
     voxels 0-31 (window 0) 12 times each, ray 39 also crosses voxel 70
-    (window 2); window 1 is empty."""
+    (window 2); window 1 is empty.  Each tile holds 96 crossings (the last
+    97)."""
     rng = np.random.default_rng(7)
     lin = torch.tensor(rng.integers(0, 32, (40, 13)), dtype=torch.int32)
     lin[:, 12] = 70
     lens = torch.tensor(rng.random((40, 13)) + 0.1, dtype=torch.float32)
     lens[:39, 12] = 0
-    return rp.build_window_tables(lin, lens, 96, G=8, W=32, K=K)
+    return rp.build_window_tables(lin, lens, 96, G=8, W=32, K=K, KF=KF)
 
 
-def _windows(request, name, K):
+def _windows(request, name, K, KF=rp.WIN_KF):
     if name == "hot":
-        return _hot_window_table(K)
+        return _hot_window_table(K, KF)
     lin, lens, V = request.getfixturevalue("traced")
-    return rp.build_window_tables(lin, lens, V, G=16, W=64, K=K)
+    return rp.build_window_tables(lin, lens, V, G=16, W=64, K=K, KF=KF)
 
 
 @pytest.mark.parametrize("name,K", [("traced", 1), ("traced", 100),
@@ -297,7 +298,7 @@ def test_window_work_items(request, name, K):
     assert bool((ends_window | (size + nxt > K)).all())
     if name == "hot":
         assert t.n_win == 3 and int((iw == 0).sum()) > 1 and 1 not in iw
-    assert t.nbytes == sum(x.numel() * 4 for x in t[:9])
+    assert t.nbytes == sum(x.numel() * 4 for x in t[:11])
 
 
 def _item_walk(t, dy):
@@ -325,6 +326,138 @@ def test_work_item_walk_matches_plain_version(request, name, K):
     want = rp.routed_bwd_window_ref(t, dy)
     torch.testing.assert_close(_item_walk(t, dy), want, rtol=1e-6,
                                atol=1e-6 * float(want.abs().max()))
+
+
+def _piece_walk(t, d):
+    """y by a plain walk over the forward's pieces, as routed_fwd_window
+    takes them: each piece's crossings, their chunks advanced from
+    ``piece_chunk`` as the crossing grows, summed into a tile of its own;
+    the tile then stored (the piece is the whole tile) or added."""
+    cp, tp = t.cptr.long(), t.tile_ptr.long()
+    y = torch.zeros(t.n_rays)
+    for p in range(t.n_pieces):
+        k0, k1 = int(t.piece_ptr[p]), int(t.piece_ptr[p + 1])
+        c0 = int(t.piece_chunk[p])
+        tile = int(t.ckey[c0]) // t.n_win
+        k = torch.arange(k0, k1)
+        c = c0 + torch.searchsorted(cp[c0 + 1:], k, right=True)
+        loc = t.loc[k].long()
+        vox = (t.ckey[c].long() % t.n_win) * t.W + (loc & 0xFFFF)
+        part = torch.zeros(t.G).index_add_(0, loc >> 16, d[vox] * t.val[k])
+        r0 = tile * t.G
+        nr = min(t.G, t.n_rays - r0)
+        if (k0, k1) == (int(cp[tp[tile]]), int(cp[tp[tile + 1]])):
+            y[r0:r0 + nr] = part[:nr]
+        else:
+            y[r0:r0 + nr] += part[:nr]
+    return y
+
+
+@pytest.mark.parametrize("name,KF", [("traced", 1), ("traced", 100),
+                                     ("traced", 10 ** 6), ("hot", 40),
+                                     ("hot", 10 ** 6)])
+def test_forward_piece_walk(request, name, KF):
+    """The forward's pieces cover each non-empty tile's crossings once and
+    in order, in ceil(n / KF) runs of at most KF whose sizes differ by at
+    most one, each with the chunk of its first crossing; the plain walk
+    over them equals the plain version."""
+    t = _windows(request, name, rp.WIN_K, KF)
+    cp, tp = t.cptr.long(), t.tile_ptr.long()
+    pp, pc = t.piece_ptr.long(), t.piece_chunk.long()
+    size = torch.diff(pp)
+    assert int(pp[0]) == 0 and int(pp[-1]) == t.nnz
+    assert bool((size > 0).all()) and bool((size <= KF).all())
+    assert bool((cp[pc] <= pp[:-1]).all() & (pp[:-1] < cp[pc + 1]).all())
+    n = cp[tp[1:]] - cp[tp[:-1]]
+    tile = t.ckey[pc].long() // t.n_win
+    last = torch.searchsorted(cp, pp[1:] - 1, right=True) - 1
+    assert torch.equal(tile, t.ckey[last].long() // t.n_win)
+    assert torch.equal(torch.bincount(tile, minlength=t.n_tiles),
+                       (n + KF - 1) // KF)
+    for j in range(t.n_tiles):
+        s = size[tile == j]
+        assert int(s.sum()) == int(n[j])
+        assert s.numel() == 0 or int(s.max() - s.min()) <= 1
+    if name == "hot":
+        assert t.n_pieces == (5 * 3 if KF == 40 else 5)
+    d = torch.tensor(np.random.default_rng(9).random(t.n_vox),
+                     dtype=torch.float32)
+    want = rp.routed_fwd_window_ref(t, d)
+    torch.testing.assert_close(_piece_walk(t, d), want, rtol=1e-6,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+def _dense_group_sums(t, d, width):
+    """y by a plain emulation of routed_fwd_dense's grouped sums: in each
+    32-crossing step of a voxel's list, each run of equal ray // width cut
+    into runs of at most ``width`` lanes, each summed component by
+    component, then added into y at rays width·g + j < R; and the count
+    of those sums."""
+    k = torch.arange(t.nnz)
+    pos = k - t.vox_ptr[:-1].long()[rp._row_ids(t.vox_ptr, t.nnz)]
+    g = t.ray.long() // width
+    start = pos % 32 == 0
+    start[1:] |= g[1:] != g[:-1]
+    run0 = torch.cummax(torch.where(start, k, 0), 0).values
+    start |= (k - run0) % width == 0
+    run = torch.cumsum(start.long(), 0) - 1
+    prod = d[rp._row_ids(t.vox_ptr, t.nnz)] * t.valT
+    acc = torch.zeros(int(start.sum()), width).index_put_(
+        (run, t.ray.long() % width), prod, accumulate=True)
+    rays = g[start][:, None] * width + torch.arange(width)
+    keep = rays < t.n_rays
+    return (torch.zeros(t.n_rays).index_add_(0, rays[keep], acc[keep]),
+            int(start.sum()))
+
+
+@pytest.mark.parametrize("width,R", [(1, 108), (2, 108), (4, 108), (2, 105),
+                                     (4, 105), (4, 106), (4, 103)])
+def test_dense_group_sums(traced, width, R):
+    """routed_fwd_dense's grouped sums equal the plain version, at each
+    atomic width and at ray counts R = 108 ≡ 0, 105 ≡ 1, 106 ≡ 2 and
+    103 ≡ 3 (mod 4), whose last group is cut short; where no group is,
+    one counted atomic a sum."""
+    lin, lens, V = traced
+    assert lin.shape[0] == 108
+    t = rp.build_tables(lin[:R], lens[:R], V, csr=False)
+    d = torch.tensor(np.random.default_rng(10).random(V),
+                     dtype=torch.float32)
+    want = rp.routed_fwd_dense_ref(t, d)
+    y, sums = _dense_group_sums(t, d, width)
+    torch.testing.assert_close(y, want, rtol=1e-6,
+                               atol=1e-6 * float(want.abs().max()))
+    assert R % width or rp.dense_fwd_atomics(t, width) == sums
+
+
+def _transpose(lists, R):
+    """The voxel-major transpose of hand-made voxel lists (voxel v crossed
+    by the rays ``lists[v]``, each of length 1)."""
+    rows = [[v for v, rays in enumerate(lists) if r in rays]
+            for r in range(R)]
+    lin = torch.zeros(R, max(map(len, rows)), dtype=torch.int32)
+    lens = torch.zeros(lin.shape)
+    for r, vs in enumerate(rows):
+        lin[r, :len(vs)] = torch.tensor(vs, dtype=torch.int32)
+        lens[r, :len(vs)] = 1.0
+    return rp.build_tables(lin, lens, len(lists), csr=False)
+
+
+@pytest.mark.parametrize("lists,R,want", [
+    # four rays of one group in one step
+    ([[0, 1, 2, 3]], 4, {1: 4, 2: 2, 4: 1}),
+    # rays 2-35: the group of rays 32-35 is cut by the warp's 32-crossing
+    # step (crossings 30-31 / 32-33 of the list), two atomics
+    ([list(range(2, 36))], 36, {1: 34, 2: 17, 4: 10}),
+    # R = 6: at width 4 rays 4-5 are a last group cut short, two scalar
+    # atomics
+    ([[0, 2], [4, 5]], 6, {1: 4, 2: 3, 4: 3}),
+])
+def test_dense_fwd_atomics(lists, R, want):
+    """The global atomics of routed_fwd_dense: one a run of one ray group
+    in a warp's step, scalar ones for a last group cut short."""
+    t = _transpose(lists, R)
+    assert t.nnz == sum(map(len, lists))
+    assert {w: rp.dense_fwd_atomics(t, w) for w in want} == want
 
 
 @pytest.mark.parametrize("rows,tile,pairs", [
@@ -363,6 +496,13 @@ def test_scatter_atomics(rows, tile, pairs):
     (lambda t, w: rp.build_window_tables(
         torch.zeros(1, 1, dtype=torch.int32), torch.ones(1, 1), 4, K=0),
      "K=0 must be positive"),
+    (lambda t, w: rp.build_window_tables(
+        torch.zeros(1, 1, dtype=torch.int32), torch.ones(1, 1), 4, KF=0),
+     "KF=0 must be positive"),
+    # a 64 KB y tile: the window forward's shared memory
+    (lambda t, w: rp.build_window_tables(
+        torch.zeros(1, 1, dtype=torch.int32), torch.ones(1, 1), 4,
+        G=2 ** 14), "would pass 48 KB"),
 ])
 def test_redesigned_wrappers_reject_wrong_input(traced, call, match):
     """What the two redesigned kernels do not take raises (a ``meta``
