@@ -54,7 +54,9 @@ Phases (any failure raises and exits non-zero):
    the window chunk table).  ``routed_bwd_window``'s work items: their
    count, the largest, ``K``; ``routed_fwd_window``'s pieces: their count,
    the largest, ``KF``; ``routed_fwd_dense``'s global atomics at atomic
-   width 1, 2 and 4 (counted from the table) against one a crossing.  From
+   width 1, 2 and 4 (counted from the table) against one a crossing;
+   ``routed_fwd_hist``'s merge-path shares: their count, the most
+   crossings and rays in one, ``HIST_SHARE``, its cut table's bytes.  From
    those operators' tables: each new
    kernel against its plain version, the adjoint identity of each pair,
    each variant's image against ``routed_fwd``'s; then ``retrieval.gd``
@@ -64,9 +66,9 @@ Phases (any failure raises and exits non-zero):
    its plain version, its bound and one PyTorch call (``torch.mv`` on the
    CSR of A, or of Aᵀ for ``routed_bwd_window``);
 14. the window-major forward ``routed_fwd_densew`` (B8) on phase 12's
-   chunk table: against its plain version, its image against
-   ``routed_fwd``'s, the adjoint identity with ``routed_bwd_window``, its
-   atomics counted from the table; then its path,
+   chunk table (one CTA a work item of phase 12's): against its plain
+   version, its image against ``routed_fwd``'s, the adjoint identity with
+   ``routed_bwd_window``, its atomics counted from the table; then its path,
    ``tools.wfwd_probe.probe('vol100')`` (100³ grid, the flagship's views),
    counters reset just before and read just after, its setup seconds, and
    B8 there against its plain version and B1's image; B8's time beside its
@@ -669,6 +671,15 @@ def main(argv):
         f"most KF={t_win.KF} crossings, largest {int(sizes.max())}, mean "
         f"{float(sizes.double().mean()):.1f}, {rp.WIN_FWD_THREADS} threads a "
         f"CTA; piece list {nbytes(t_win.piece_ptr, t_win.piece_chunk)} B")
+    cut = rp.hist_cut(t_hist)
+    log(f"[variant hist] routed_fwd_hist: {cut.shape[0] - 1} shares of "
+        f"HIST_SHARE={rp.HIST_SHARE} merge-path steps, at most "
+        f"{int(torch.diff(cut[:, 1]).max())} crossings and "
+        f"{int(torch.diff(cut[:, 0]).max()) + 1} rays a share; cut table "
+        f"{nbytes(cut)} B")
+    if t_hist.cut is None or not torch.equal(t_hist.cut, cut):
+        raise AssertionError("the 'hist' tables lack routed_fwd_hist's cut "
+                             "table")
     dense_atomics = {w: rp.dense_fwd_atomics(t_both, w) for w in (1, 2, 4)}
     log(f"[variant both] routed_fwd_dense: global atomics at width 1 / 2 / 4 "
         f"{dense_atomics[1]} / {dense_atomics[2]} / {dense_atomics[4]} "
@@ -743,8 +754,8 @@ def main(argv):
     var_bytes = {
         "routed_fwd_dense": nbytes(t_both.vox_ptr, t_both.ray, t_both.valT)
         + 4 * V + 4 * R,
-        "routed_fwd_hist": nbytes(t_hist.row_ptr, t_hist.col, t_hist.val)
-        + 4 * V + 4 * R,
+        "routed_fwd_hist": nbytes(t_hist.row_ptr, t_hist.col, t_hist.val,
+                                  t_hist.cut) + 4 * V + 4 * R,
         "routed_fwd_window": nbytes(t_win.tile_ptr, t_win.piece_ptr,
                                     t_win.piece_chunk) + win_common
         + 4 * V + 4 * R,
@@ -796,9 +807,9 @@ def main(argv):
     if not abs(lhs - rhs) <= 1e-5 * abs(lhs):
         raise AssertionError(f"adjoint identity fails for {name}")
     runs, atomics = wfwd_probe.densew_atomics(t_win)
-    log(f"[densew] flagship: {runs} (ray, chunk) runs, {atomics} atomics "
-        f"issued (one per run and 32-crossing slice); routed_fwd_dense "
-        f"issues one a crossing, {t_win.nnz}")
+    log(f"[densew] flagship: {t_win.n_items} work items; {runs} (ray, "
+        f"chunk) runs, {atomics} atomics issued; routed_fwd_dense issues "
+        f"one a crossing, {t_win.nnz}")
 
     torch.cuda.synchronize()
     rp.reset_launches()
@@ -828,8 +839,8 @@ def main(argv):
     ms = cuda_ms(lambda: rp.routed_fwd_densew(t_win, d))
     plain_ms = cuda_ms(lambda: rp.routed_fwd_densew_ref(t_win, d))
     lib_ms = cuda_ms(lambda: torch.mv(A, d))
-    dw_bytes = nbytes(t_win.win_ptr, t_win.bwd_order) + win_common \
-        + 4 * V + 4 * R
+    dw_bytes = nbytes(t_win.item_ptr, t_win.item_win, t_win.bwd_order) \
+        + win_common + 4 * V + 4 * R
     byte_ms = dw_bytes / HBM_BYTES_PER_S * 1e3
     op_ms = 2 * t_win.nnz / F32_FLOPS * 1e3
     kernels.append({
@@ -841,7 +852,8 @@ def main(argv):
         "library_ms": lib_ms})
     log(f"[kernel] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"library {lib_ms:.4f} ms, bound {max(byte_ms, op_ms):.4f} ms "
-        f"({dw_bytes} bytes), {byte_ms / ms:.1%} of the bound")
+        f"({dw_bytes} bytes), {byte_ms / ms:.1%} of the bound, {atomics} "
+        f"global atomics")
 
     # 15. routed_w_dtype='bf16' on the flagship -----------------------------
     # each banded pair and fused mode's backward on bf16 tables, beside the
@@ -1040,10 +1052,12 @@ def main(argv):
         mat = AT16 if "bwd" in entry else A16
         lib_ms = cuda_ms(lambda: torch.mv(mat, x))
         if isinstance(t16, rp.WindowTables):
-            reads = (t16.win_ptr, t16.bwd_order, t16.ckey, t16.cptr, t16.loc,
-                     t16.val)
+            reads = (t16.item_ptr, t16.item_win, t16.bwd_order, t16.ckey,
+                     t16.cptr, t16.loc, t16.val)
         elif kern in (rp.routed_fwd_dense, rp.routed_bwd_gather):
             reads = (t16.vox_ptr, t16.ray, t16.valT)
+        elif kern is rp.routed_fwd_hist:
+            reads = (t16.row_ptr, t16.col, t16.val, t16.cut)
         else:
             reads = (t16.row_ptr, t16.col, t16.val)
         b16 = nbytes(*reads) + 4 * V + 4 * R

@@ -11,13 +11,14 @@
 //                         voxel-major transpose (vox_ptr, ray, valT)
 //   routed_fwd_hist    <- _fwd_banded_hist_pallas  (B6): y = A.d over the
 //                         ray-major CSR (row_ptr, col, val), one CTA per
-//                         tile of rays
+//                         equal share of rays and crossings
 //   routed_fwd_window  <- _fwd_pallas              (B7a): y = A.d over the
 //                         window chunk table
 //   routed_bwd_window  <- _bwd_pallas              (B7b): dD = A^T.dy over
 //                         the same chunk table
 //   routed_fwd_densew  <- _fwd_banded_densew_pallas (B8): y = A.d over the
-//                         same chunk table, window-major
+//                         same chunk table, window-major, one CTA per
+//                         work item (B7b's)
 //
 // (all in sph_raytracer_tpu/ops/routed_project.py).  As in
 // routed_project.cu, the TPU kernels' int8 lane routes, 8-row bands,
@@ -51,15 +52,31 @@
 //   because neighbouring voxels share rays, so their warps' adds met on
 //   the same sectors.  The atomics sum in a run-to-run order.
 // * routed_fwd_hist: the TPU kernel's idea is a reduce whose cost barely
-//   depends on how many crossings each ray has.  Here one CTA owns a tile
-//   of kHistTile rays and walks the tile's crossing range kBlock crossings
-//   at a time, one per thread, so every table load is coalesced and ragged
-//   rows leave no lane idle.  Each thread advances its ray through the
-//   tile's row pointers (staged in shared memory); each warp sums every
-//   ray's run in registers (a segmented shuffle scan), and the run's last
-//   lane adds the total into a shared-memory y tile, flushed once with
-//   coalesced stores.  No global atomics; the shared adds sum in a
-//   run-to-run order.
+//   depends on how many crossings each ray has.  It was one CTA per tile
+//   of 256 rays, one crossing a thread a step, and it was latency-bound
+//   (1.6x torch.mv's time, PERF.md section 6): the largest tile took 92
+//   dependent steps of a row-pointer advance, a 4 B index load, a gather
+//   of d and a 10-shuffle scan, with 2 KB of table in flight a CTA.  So it
+//   takes equal shares of the merge path of the rays' ends and the
+//   crossings instead (Merrill & Garland, "Merge-based parallel sparse
+//   matrix-vector multiplication", SC 2016), so a share bounds both its
+//   crossings and the rays it writes (a run of empty rays costs steps, not
+//   crossings).  Each CTA reads its share's ends from a cut table built
+//   with the CSR (8 B a share, 67,808 B at the flagship): a warp-wide
+//   search of row_ptr in the kernel cost 8-10 % of its time.  Each thread
+//   takes an aligned quad of col and val a step (16 B each, 8 B of bf16)
+//   and sums its quad's crossings of one ray in registers: rays are long
+//   (68.6 crossings a live ray at the flagship), so a quad almost always
+//   holds one ray, and the warp's scan and the shared adds run once a quad,
+//   not once a crossing.  A ray wholly inside a share is stored, a ray that
+//   a share's end cuts is added into y with one global atomic a share (the
+//   C entry zeroes y).  The kernel stays latency-bound: a CTA's chain of
+//   dependent loads (its ends, the row pointers, a step's quad, its gathers
+//   of d) sets its pace, so CTAs of 256 at 32 registers (full occupancy)
+//   take two steps of one quad at the wrapper's share (HIST_SHARE); two or
+//   four quads a step cost registers and occupancy and read slower
+//   (tools/fwd_sweep.py, PERF.md section 6).  The shared and global adds
+//   sum in a run-to-run order.
 // * routed_fwd_window / routed_bwd_window: the TPU kernels' idea is chunks
 //   of (ray tile, density window), with the window's density (forward) or
 //   the tile's dy (backward) staged in fast memory.  The chunk table holds
@@ -109,18 +126,27 @@
 // * routed_fwd_densew: the TPU kernel's idea is a window-major forward:
 //   each density window is fetched once (one DMA a superchunk), and the
 //   whole y stays resident in VMEM, accumulated across the sequential grid.
-//   Here one CTA per voxel window stages the window's W density values in
-//   shared memory once and walks the window's chunks in tile order
-//   (bwd_order, as routed_bwd_window), its kGroups groups on different
-//   chunks; a warp sums each ray's run (crossings of a chunk are sorted by
-//   ray) and adds the total into the global y, which the C entry zeroes
-//   first.  A y resident on chip does not carry over: CTAs run in
-//   parallel and in no order, and each (tile, window) pair is one chunk,
-//   so a shared y tile would collect nothing across chunks.  The resident
-//   y is the global one (1 MB at the flagship), kept in L2, one atomic per
-//   (ray, chunk, 32-crossing slice) run instead of B5's one per crossing.
-//   The atomics sum in a run-to-run order; the hottest window's CTA holds
-//   about 4x the mean window's crossings at the flagship.
+//   A y resident on chip does not carry over: CTAs run in parallel and in
+//   no order, and each (tile, window) pair is one chunk, so a shared y tile
+//   would collect nothing across chunks.  The resident y is the global one
+//   (1 MB at the flagship), kept in L2, one atomic per (ray, chunk) run of
+//   a warp's step instead of B5's one per crossing.  It was one CTA per
+//   window, 8 groups of 128 threads on different chunks, and three things
+//   held it at 2.1x torch.mv's time (PERF.md section 6): the hottest
+//   window holds 4x the mean window's crossings, and its CTA set the tail;
+//   chunks of a median 286 crossings filled a group's 512-crossing step
+//   57 %; and each thread loaded 4 B of loc and of val a crossing.  So it
+//   walks B7b's work items instead (each window's chunks in bwd_order cut
+//   into runs of at most WIN_K crossings), one CTA an item, the item's
+//   chunks laid end to end as in routed_bwd_window, so that every step is
+//   full whatever the chunk sizes, 4 crossings a thread a step in CTAs of
+//   128, the window's d staged in shared memory once an item.  The sweep
+//   (tools/fwd_sweep.py, PERF.md section 6) chose it: a (ray, chunk) run is
+//   ~2 crossings, so a walk of aligned quads added ~2 runs a quad on their
+//   own, issued more atomics (10.5 M against 9.0 M) and read 20-55 %
+//   slower; d read through L2 read 5 % slower, larger CTAs slower still;
+//   plain stores in place of the atomics read as fast, so the walk, not
+//   the atomics, sets its pace.  The atomics sum in a run-to-run order.
 //
 // routed_fwd_dense, routed_fwd_hist and routed_fwd_densew are templates on
 // their weight type Weight, as routed_project.cu's kernels are: float, or
@@ -137,8 +163,10 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kBlock = 256;
-constexpr int kHistTile = 256;  // rays per CTA of routed_fwd_hist
 constexpr unsigned kFull = 0xffffffffu;
+// crossings a thread takes a step in the crossing walks (routed_bwd_window,
+// routed_fwd_densew)
+constexpr int kUnroll = 4;
 
 // y[kW·g .. kW·g + kW) += a: one kW-wide global atomic (float2 / float4
 // atomics exist for global memory on compute capability 9.x), or scalar
@@ -245,72 +273,115 @@ __device__ __forceinline__ bool warp_run_sum(int key, float& x) {
   return key >= 0 && (lane == kWarp - 1 || next != key);
 }
 
-// y = A.d over the ray-major CSR, one CTA per kHistTile rays.  The tile's
-// crossings are taken kBlock at a time, one per thread (coalesced); each
-// thread advances its ray through the tile's row pointers (kept in shared
-// memory), a warp sums each ray's run in registers (warp_run_sum), and the
-// run's last lane adds the total into the shared y tile.
-template <typename Weight>
-__global__ void __launch_bounds__(kBlock)
-routed_fwd_hist_kernel(const int* __restrict__ row_ptr,
-                       const int* __restrict__ col,
-                       const Weight* __restrict__ val,
-                       const float* __restrict__ d, float* __restrict__ y,
-                       int n_rays) {
-  __shared__ float y_s[kHistTile];
-  __shared__ int ptr_s[kHistTile + 1];
-  const int r0 = blockIdx.x * kHistTile;
-  const int n = min(kHistTile, n_rays - r0);
-  for (int i = threadIdx.x; i <= n; i += kBlock)
-    ptr_s[i] = __ldg(row_ptr + r0 + i);
-  for (int i = threadIdx.x; i < kHistTile; i += kBlock) y_s[i] = 0.f;
-  __syncthreads();
-  const int end = ptr_s[n];
-  int r = 0;  // this thread's ray in the tile, advanced as k grows
-  for (int k = ptr_s[0] + threadIdx.x; k - threadIdx.x < end; k += kBlock) {
-    int key = -1;
-    float x = 0.f;
-    if (k < end) {
-      while (ptr_s[r + 1] <= k) ++r;
-      key = r;
-      x = __ldg(d + __ldg(col + k)) * load_w(val + k);
-    }
-    if (warp_run_sum(key, x)) atomicAdd(y_s + key, x);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += kBlock) y[r0 + i] = y_s[i];
-}
-
-// routed_fwd_densew: a CTA of kWinBlock threads is kGroups groups of
-// kGroupThreads, each walking its own share of the CTA's chunks (chunk
-// c, c + kGroups, ...) so that several chunks' loads are in flight at once
-// (one CTA a window).  Each thread issues kUnroll crossings' table loads
-// before it updates memory.
-constexpr int kWinBlock = 1024;
-constexpr int kGroups = 8;
-constexpr int kGroupThreads = kWinBlock / kGroups;
-constexpr int kUnroll = 4;
-
-
-// The packed offsets loc[k0..k0+3] and lengths val[k0..k0+3] of the
-// 4-aligned quad at k0 of an n-crossing table: two 16 B loads (the
-// table's base is aligned; ops/routed_project.py checks it), or scalar
+// The indices idx[k0..k0+3] and weights val[k0..k0+3] (widened to f32) of
+// the 4-aligned quad at k0 of an n-crossing table: two vector loads (the
+// tables' bases are aligned; ops/routed_project.py checks it), or scalar
 // ones (0 past n) for the table's last, partial quad.
-__device__ __forceinline__ void load_quad(const int* __restrict__ loc,
-                                          const float* __restrict__ val,
+template <typename Weight>
+__device__ __forceinline__ void load_quad(const int* __restrict__ idx,
+                                          const Weight* __restrict__ val,
                                           int k0, int n, int (&p)[4],
                                           float (&w)[4]) {
   if (k0 + 4 <= n) {
-    const int4 pv = __ldg(reinterpret_cast<const int4*>(loc + k0));
-    const float4 wv = __ldg(reinterpret_cast<const float4*>(val + k0));
+    const int4 pv = __ldg(reinterpret_cast<const int4*>(idx + k0));
     p[0] = pv.x, p[1] = pv.y, p[2] = pv.z, p[3] = pv.w;
-    w[0] = wv.x, w[1] = wv.y, w[2] = wv.z, w[3] = wv.w;
+    load_w4(val + k0, w);
     return;
   }
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    p[j] = k0 + j < n ? __ldg(loc + k0 + j) : 0;
-    w[j] = k0 + j < n ? __ldg(val + k0 + j) : 0.f;
+    p[j] = k0 + j < n ? __ldg(idx + k0 + j) : 0;
+    w[j] = k0 + j < n ? load_w(val + k0 + j) : 0.f;
+  }
+}
+
+// The CTA size of routed_fwd_hist: 8 crossings a thread in two steps of
+// one quad at the default share, at 32 registers (full occupancy)
+constexpr int kHistBlock = 256;
+
+// y = A.d over the ray-major CSR: one CTA of kHistBlock per share of
+// `share` steps of the merge path of the rays' ends and the crossings.  The
+// CTA reads the share's two ends (i0, k0) and (i1, k1) (crossings [k0, k1),
+// the ends of rays [i0, i1)) from the cut table (cut: the (ray, crossing)
+// pair of each share's start, and the end), then stages the share's row
+// pointers in shared memory with its first quad already in flight.  Each
+// thread takes one aligned quad of col and val a step, finds the quad's
+// first ray by a binary search in the row pointers (from its last ray: its
+// quads ascend) and sums the quad's crossings of each ray in registers: a
+// ray that ends inside the quad goes into the shared y_s at once, the
+// quad's last run through the warp's merge (warp_run_sum).  Then each ray
+// that lies wholly in the share is stored, and the (at most two) rays that
+// the share's ends cut are added into y with one global atomic each (the C
+// entry zeroes y).
+template <typename Weight>
+__global__ void __launch_bounds__(kHistBlock)
+routed_fwd_hist_kernel(const int* __restrict__ row_ptr,
+                       const int* __restrict__ col,
+                       const Weight* __restrict__ val,
+                       const int* __restrict__ cut,
+                       const float* __restrict__ d, float* __restrict__ y,
+                       int n_rays, int nnz, int share) {
+  extern __shared__ int ptr_s[];  // the share's row pointers (share + 2 ints),
+                                  // then its rays' sums y_s (share + 1)
+  const int tid = threadIdx.x;
+  const int2 c0 = __ldg(reinterpret_cast<const int2*>(cut) + blockIdx.x);
+  const int2 c1 = __ldg(reinterpret_cast<const int2*>(cut) + blockIdx.x + 1);
+  const int i0 = c0.x, k0 = c0.y, i1 = c1.x, k1 = c1.y;
+  const int nr = min(i1, n_rays - 1) - i0 + 1;  // the rays the share touches
+  float* y_s = reinterpret_cast<float*>(ptr_s + share + 2);
+  int c[4];
+  float x[4];
+  const int q_first = (k0 & ~3) + 4 * tid;
+  // in flight while the row pointers are staged
+  if (q_first < k1) load_quad(col, val, q_first, nnz, c, x);
+  for (int j = tid; j <= nr; j += kHistBlock)
+    ptr_s[j] = __ldg(row_ptr + i0 + j);
+  for (int j = tid; j < nr; j += kHistBlock) y_s[j] = 0.f;
+  __syncthreads();
+  int r = 0;  // this thread's last ray in the share
+  for (int q0 = q_first; q0 - 4 * tid < k1; q0 += 4 * kHistBlock) {
+    int key = -1;
+    float acc = 0.f;
+    if (q0 < k1) {
+      if (q0 != q_first) load_quad(col, val, q0, nnz, c, x);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = q0 + i;
+        if (k >= k0 && k < k1) x[i] = __ldg(d + c[i]) * x[i];
+      }
+      const int ka = max(q0, k0);
+      for (int hi = nr - 1; r < hi;) {  // the last ray starting <= ka
+        const int mid = (r + hi + 1) >> 1;
+        if (ptr_s[mid] <= ka) {
+          r = mid;
+        } else {
+          hi = mid - 1;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = q0 + i;
+        if (k < k0 || k >= k1) continue;
+        while (ptr_s[r + 1] <= k) ++r;  // a ray ended inside the quad
+        if (r != key) {
+          if (key >= 0) atomicAdd(y_s + key, acc);
+          key = r;
+          acc = x[i];
+        } else {
+          acc += x[i];
+        }
+      }
+    }
+    if (warp_run_sum(key, acc)) atomicAdd(y_s + key, acc);
+  }
+  __syncthreads();
+  for (int j = tid; j < nr; j += kHistBlock) {
+    const int ray = i0 + j;
+    if (ray < i1 && ptr_s[j] >= k0) {
+      y[ray] = y_s[j];  // the ray lies wholly in the share
+    } else if (y_s[j] != 0.f) {
+      atomicAdd(y + ray, y_s[j]);  // one of the share's ends cuts it
+    }
   }
 }
 
@@ -406,11 +477,11 @@ routed_fwd_window_kernel(const int* __restrict__ tile_ptr,
 // bwd_order of at most K crossings, or one larger chunk), kUnroll crossings
 // a thread a step.
 constexpr int kItemBlock = 256;
-constexpr int kItemWarps = kItemBlock / kWarp;
 
-// Exclusive prefix sum of n over the CTA's threads in thread order; total
-// gets the sum over all of them.  Every thread must call it; warp_s holds
-// kItemWarps ints.
+// Exclusive prefix sum of n over the CTA's kThreads threads in thread
+// order; total gets the sum over all of them.  Every thread must call it;
+// warp_s holds kThreads / 32 ints.
+template <int kThreads>
 __device__ __forceinline__ int block_exclusive_sum(int n, int* warp_s,
                                                    int& total) {
   const int lane = threadIdx.x & (kWarp - 1), wid = threadIdx.x / kWarp;
@@ -425,7 +496,7 @@ __device__ __forceinline__ int block_exclusive_sum(int n, int* warp_s,
   int before = 0;
   total = 0;
 #pragma unroll
-  for (int i = 0; i < kItemWarps; ++i) {
+  for (int i = 0; i < kThreads / kWarp; ++i) {
     const int s = warp_s[i];
     if (i < wid) before += s;
     total += s;
@@ -459,7 +530,7 @@ routed_bwd_window_kernel(const int* __restrict__ win_ptr,
   __shared__ int beg_s[kItemBlock + 1];  // each chunk's start in the walk
   __shared__ int src_s[kItemBlock];      // its first crossing
   __shared__ int r0_s[kItemBlock];       // its tile's first ray
-  __shared__ int warp_s[kItemWarps];
+  __shared__ int warp_s[kItemBlock / kWarp];
   const int tid = threadIdx.x;
   const int w = __ldg(item_win + blockIdx.x);
   const int j_beg = __ldg(item_ptr + blockIdx.x);
@@ -479,7 +550,7 @@ routed_bwd_window_kernel(const int* __restrict__ win_ptr,
       r0_s[tid] = (__ldg(ckey + c) / n_win) * G;
     }
     int total;
-    const int beg = block_exclusive_sum(n, warp_s, total);
+    const int beg = block_exclusive_sum<kItemBlock>(n, warp_s, total);
     if (tid < nc) beg_s[tid] = beg;
     if (tid == 0) beg_s[nc] = total;
     __syncthreads();
@@ -518,13 +589,24 @@ routed_bwd_window_kernel(const int* __restrict__ win_ptr,
   }
 }
 
-// y += A.d over the same chunk table, window-major: one CTA per voxel
-// window, its chunks in tile order (bwd_order).  Shared memory: d_s[W],
-// staged once.  Each ray's run is summed in the warp and added into the
-// global y.
+// The CTA size of routed_fwd_densew
+constexpr int kDensewBlock = 128;
+
+// y = A.d over the same chunk table, window-major: one CTA of kDensewBlock
+// per work item (B7b's: item_ptr / item_win, a run of one window's chunks
+// in bwd_order of at most K crossings, or one larger chunk).  The CTA
+// stages the window's W values of d in shared memory once; then, as in
+// routed_bwd_window, it takes the item's chunks kDensewBlock at a time,
+// lays them end to end by a CTA prefix sum and walks that concatenation
+// kUnroll crossings a thread a step, whatever the chunk sizes.  A warp sums
+// each ray's run across its lanes (warp_run_sum: a chunk's crossings are
+// sorted by ray and a window's chunks ascend by tile, so the global ray
+// ascends along the walk) and the run's last lane adds it into y with one
+// global atomic (the C entry zeroes y).
 template <typename Weight>
-__global__ void __launch_bounds__(kWinBlock)
-routed_fwd_densew_kernel(const int* __restrict__ win_ptr,
+__global__ void __launch_bounds__(kDensewBlock)
+routed_fwd_densew_kernel(const int* __restrict__ item_ptr,
+                         const int* __restrict__ item_win,
                          const int* __restrict__ bwd_order,
                          const int* __restrict__ ckey,
                          const int* __restrict__ cptr,
@@ -532,36 +614,57 @@ routed_fwd_densew_kernel(const int* __restrict__ win_ptr,
                          const Weight* __restrict__ val,
                          const float* __restrict__ d, float* __restrict__ y,
                          int n_win, int n_vox, int G, int W) {
-  extern __shared__ float d_s[];
-  const int g = threadIdx.x / kGroupThreads;
-  const int gt = threadIdx.x % kGroupThreads;
-  const int w = blockIdx.x;
-  const int j_beg = __ldg(win_ptr + w), j_end = __ldg(win_ptr + w + 1);
-  if (j_beg == j_end) return;  // an empty window (the whole CTA returns)
-  const int v0 = w * W;
-  const int nv = min(W, n_vox - v0);
-  for (int i = threadIdx.x; i < nv; i += kWinBlock)
+  extern __shared__ float d_s[];           // the window's density
+  __shared__ int beg_s[kDensewBlock + 1];  // each chunk's start in the walk
+  __shared__ int src_s[kDensewBlock];      // its first crossing
+  __shared__ int r0_s[kDensewBlock];       // its tile's first ray
+  __shared__ int warp_s[kDensewBlock / kWarp];
+  const int tid = threadIdx.x;
+  const int j_beg = __ldg(item_ptr + blockIdx.x);
+  const int j_end = __ldg(item_ptr + blockIdx.x + 1);
+  const int v0 = __ldg(item_win + blockIdx.x) * W;
+  for (int i = tid; i < min(W, n_vox - v0); i += kDensewBlock)
     d_s[i] = __ldg(d + v0 + i);
-  __syncthreads();
-  for (int j = j_beg + g; j < j_end; j += kGroups) {
-    const int c = __ldg(bwd_order + j);
-    float* y_t = y + static_cast<long long>(__ldg(ckey + c) / n_win) * G;
-    const int k_beg = __ldg(cptr + c), k_end = __ldg(cptr + c + 1);
-    for (int k0 = k_beg; k0 < k_end; k0 += kUnroll * kGroupThreads) {
-      unsigned p[kUnroll];
-      float v[kUnroll];
+  for (int j0 = j_beg; j0 < j_end; j0 += kDensewBlock) {
+    const int nc = min(kDensewBlock, j_end - j0);
+    __syncthreads();  // d_s is staged; the last batch is done with the lists
+    int n = 0;
+    if (tid < nc) {
+      const int c = __ldg(bwd_order + j0 + tid);
+      const int s = __ldg(cptr + c);
+      n = __ldg(cptr + c + 1) - s;
+      src_s[tid] = s;
+      r0_s[tid] = (__ldg(ckey + c) / n_win) * G;
+    }
+    int total;
+    const int beg = block_exclusive_sum<kDensewBlock>(n, warp_s, total);
+    if (tid < nc) beg_s[tid] = beg;
+    if (tid == 0) beg_s[nc] = total;
+    __syncthreads();
+    int q = 0;  // this thread's chunk in the batch, advanced as f grows
+    for (int f0 = tid; f0 - tid < total; f0 += kUnroll * kDensewBlock) {
+      int p[kUnroll];
+      float x[kUnroll];
+      int r0[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        const int k = k0 + u * kGroupThreads + gt;
-        p[u] = k < k_end ? static_cast<unsigned>(__ldg(loc + k)) : 0u;
-        v[u] = k < k_end ? load_w(val + k) : 0.f;
+        const int f = f0 + u * kDensewBlock;
+        p[u] = 0;
+        x[u] = 0.f;
+        r0[u] = -1;
+        if (f < total) {
+          while (beg_s[q + 1] <= f) ++q;
+          const int k = src_s[q] + (f - beg_s[q]);
+          p[u] = __ldg(loc + k);
+          x[u] = load_w(val + k);
+          r0[u] = r0_s[q];
+        }
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        const bool live = k0 + u * kGroupThreads + gt < k_end;
-        const int key = live ? static_cast<int>(p[u] >> 16) : -1;
-        float x = live ? v[u] * d_s[p[u] & 0xffffu] : 0.f;
-        if (warp_run_sum(key, x)) atomicAdd(y_t + key, x);
+        const int key = r0[u] >= 0 ? r0[u] + (p[u] >> 16) : -1;
+        float xd = r0[u] >= 0 ? x[u] * d_s[p[u] & 0xffff] : 0.f;
+        if (warp_run_sum(key, xd)) atomicAdd(y + key, xd);
       }
     }
   }
@@ -610,33 +713,46 @@ int launch_fwd_dense(const void* vox_ptr, const void* ray, const void* valT,
   return static_cast<int>(cudaGetLastError());
 }
 
+// cut: (n_rays + nnz) / share rounded up, plus one, (ray, crossing) int
+// pairs (ops/routed_project.py hist_cut at this share); share: the
+// merge-path steps a CTA takes, 1 to 6,140 (its row pointers and sums in
+// 48 KB of shared memory; another is refused)
 template <typename Weight>
 int launch_fwd_hist(const void* row_ptr, const void* col, const void* val,
-                    const void* d, void* y, int n_rays, void* stream) {
-  if (n_rays > 0)
-    routed_fwd_hist_kernel<Weight><<<cdiv(n_rays, kHistTile), kBlock, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(row_ptr), static_cast<const int*>(col),
-        static_cast<const Weight*>(val), static_cast<const float*>(d),
-        static_cast<float*>(y), n_rays);
+                    const void* cut, const void* d, void* y, int n_rays,
+                    int nnz, int share, void* stream) {
+  if (share < 1 || share > 6140 || cut == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(y, 0, sizeof(float) * n_rays, s);
+  if (err != cudaSuccess || n_rays == 0) return static_cast<int>(err);
+  routed_fwd_hist_kernel<Weight>
+      <<<cdiv(static_cast<long long>(n_rays) + nnz, share), kHistBlock,
+         sizeof(int) * (2 * share + 3), s>>>(
+          static_cast<const int*>(row_ptr), static_cast<const int*>(col),
+          static_cast<const Weight*>(val), static_cast<const int*>(cut),
+          static_cast<const float*>(d), static_cast<float*>(y), n_rays, nnz,
+          share);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Weight>
-int launch_fwd_densew(const void* win_ptr, const void* bwd_order,
-                      const void* ckey, const void* cptr, const void* loc,
-                      const void* val, const void* d, void* y, int n_win,
-                      int n_rays, int n_vox, int G, int W, void* stream) {
+int launch_fwd_densew(const void* item_ptr, const void* item_win,
+                      const void* bwd_order, const void* ckey,
+                      const void* cptr, const void* loc, const void* val,
+                      const void* d, void* y, int n_win, int n_rays,
+                      int n_vox, int n_items, int G, int W, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(y, 0, sizeof(float) * n_rays, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_win > 0)
-    routed_fwd_densew_kernel<Weight><<<n_win, kWinBlock, sizeof(float) * W, s>>>(
-        static_cast<const int*>(win_ptr),
-        static_cast<const int*>(bwd_order), static_cast<const int*>(ckey),
-        static_cast<const int*>(cptr), static_cast<const int*>(loc),
-        static_cast<const Weight*>(val), static_cast<const float*>(d),
-        static_cast<float*>(y), n_win, n_vox, G, W);
+  if (err != cudaSuccess || n_items == 0) return static_cast<int>(err);
+  routed_fwd_densew_kernel<Weight>
+      <<<n_items, kDensewBlock, sizeof(float) * W, s>>>(
+          static_cast<const int*>(item_ptr),
+          static_cast<const int*>(item_win),
+          static_cast<const int*>(bwd_order), static_cast<const int*>(ckey),
+          static_cast<const int*>(cptr), static_cast<const int*>(loc),
+          static_cast<const Weight*>(val), static_cast<const float*>(d),
+          static_cast<float*>(y), n_win, n_vox, G, W);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -680,15 +796,18 @@ int routed_fwd_dense_bf16(const void* vox_ptr, const void* ray,
 }
 
 int routed_fwd_hist(const void* row_ptr, const void* col, const void* val,
-                    const void* d, void* y, int n_rays, void* stream) {
-  return launch_fwd_hist<float>(row_ptr, col, val, d, y, n_rays, stream);
+                    const void* cut, const void* d, void* y, int n_rays,
+                    int nnz, int share, void* stream) {
+  return launch_fwd_hist<float>(row_ptr, col, val, cut, d, y, n_rays, nnz,
+                                share, stream);
 }
 
 int routed_fwd_hist_bf16(const void* row_ptr, const void* col,
-                         const void* val, const void* d, void* y, int n_rays,
+                         const void* val, const void* cut, const void* d,
+                         void* y, int n_rays, int nnz, int share,
                          void* stream) {
-  return launch_fwd_hist<__nv_bfloat16>(row_ptr, col, val, d, y, n_rays,
-                                        stream);
+  return launch_fwd_hist<__nv_bfloat16>(row_ptr, col, val, cut, d, y, n_rays,
+                                        nnz, share, stream);
 }
 
 // threads: the CTA size, 128, 256, 512 or 1024 (another is refused)
@@ -731,22 +850,26 @@ int routed_bwd_window(const void* win_ptr, const void* item_ptr,
   return static_cast<int>(cudaGetLastError());
 }
 
-int routed_fwd_densew(const void* win_ptr, const void* bwd_order,
-                      const void* ckey, const void* cptr, const void* loc,
-                      const void* val, const void* d, void* y, int n_win,
-                      int n_rays, int n_vox, int G, int W, void* stream) {
-  return launch_fwd_densew<float>(win_ptr, bwd_order, ckey, cptr, loc, val,
-                                  d, y, n_win, n_rays, n_vox, G, W, stream);
+int routed_fwd_densew(const void* item_ptr, const void* item_win,
+                      const void* bwd_order, const void* ckey,
+                      const void* cptr, const void* loc, const void* val,
+                      const void* d, void* y, int n_win, int n_rays,
+                      int n_vox, int n_items, int G, int W, void* stream) {
+  return launch_fwd_densew<float>(item_ptr, item_win, bwd_order, ckey, cptr,
+                                  loc, val, d, y, n_win, n_rays, n_vox,
+                                  n_items, G, W, stream);
 }
 
-int routed_fwd_densew_bf16(const void* win_ptr, const void* bwd_order,
-                           const void* ckey, const void* cptr,
-                           const void* loc, const void* val, const void* d,
-                           void* y, int n_win, int n_rays, int n_vox, int G,
-                           int W, void* stream) {
-  return launch_fwd_densew<__nv_bfloat16>(win_ptr, bwd_order, ckey, cptr,
-                                          loc, val, d, y, n_win, n_rays,
-                                          n_vox, G, W, stream);
+int routed_fwd_densew_bf16(const void* item_ptr, const void* item_win,
+                           const void* bwd_order, const void* ckey,
+                           const void* cptr, const void* loc,
+                           const void* val, const void* d, void* y,
+                           int n_win, int n_rays, int n_vox, int n_items,
+                           int G, int W, void* stream) {
+  return launch_fwd_densew<__nv_bfloat16>(item_ptr, item_win, bwd_order,
+                                          ckey, cptr, loc, val, d, y, n_win,
+                                          n_rays, n_vox, n_items, G, W,
+                                          stream);
 }
 
 }  // extern "C"

@@ -49,10 +49,10 @@ _ENTRIES = {
     "routed_bwd_gather": [_P, _P, _P, _P, _P, _I, _P],
     "routed_bwd_scatter": [_P] * 6 + [_I] * 4 + [_P],
     "routed_fwd_dense": [_P] * 5 + [_I] * 4 + [_P],
-    "routed_fwd_hist": [_P, _P, _P, _P, _P, _I, _P],
+    "routed_fwd_hist": [_P] * 6 + [_I] * 3 + [_P],
     "routed_fwd_window": [_P] * 9 + [_I] * 7 + [_P],
     "routed_bwd_window": [_P] * 10 + [_I] * 5 + [_P],
-    "routed_fwd_densew": [_P] * 8 + [_I] * 5 + [_P],
+    "routed_fwd_densew": [_P] * 9 + [_I] * 6 + [_P],
     "fused_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 # the kernels templated on their weight type: each has a bfloat16 entry

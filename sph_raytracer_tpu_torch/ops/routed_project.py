@@ -22,10 +22,11 @@ bwd_only=True)``).
 The window-routed engine (``routed_banded=False``) reads one chunk table
 instead (:func:`build_window_tables`, :class:`WindowTables`): the live
 crossings grouped into (tile of :data:`WIN_G` rays, window of
-:data:`WIN_W` voxels) chunks, 8 B a crossing, and the backward's work
-items (each window's chunks cut into runs of at most :data:`WIN_K`
-crossings, 8 B an item) and the forward's pieces (each tile's crossings
-cut into runs of at most :data:`WIN_KF`, 8 B a piece).
+:data:`WIN_W` voxels) chunks, 8 B a crossing, and the window-major work
+items of the backward and of ``routed_fwd_densew`` (each window's chunks
+cut into runs of at most :data:`WIN_K` crossings, 8 B an item) and the
+forward's pieces (each tile's crossings cut into runs of at most
+:data:`WIN_KF`, 8 B a piece).
 
 Kernels (``csrc/routed_project.cu``, ``csrc/routed_variants.cu``), each
 beside its plain PyTorch version and a launch counter in :data:`LAUNCHES`
@@ -83,6 +84,8 @@ __all__ = [
     "WIN_K",
     "WIN_KF",
     "WIN_FWD_THREADS",
+    "HIST_SHARE",
+    "hist_cut",
     "DENSE_WIDTH",
     "DENSE_SPREAD",
     "SCATTER_TILE",
@@ -125,7 +128,10 @@ class RoutedTables(NamedTuple):
     """GPU-native CSR tables of one operator (see module docstring).
     ``vox_ptr``/``ray``/``valT`` are None when the transpose was not
     built; ``row_ptr``/``col``/``val`` are None when the ray-major CSR
-    was not."""
+    was not.  ``cut`` is ``routed_fwd_hist``'s cut table
+    (:func:`hist_cut` at :data:`HIST_SHARE`, so tied to that setting),
+    built only for it (:func:`build_for`); without one the wrapper makes
+    it at each call."""
 
     row_ptr: Optional[torch.Tensor]
     col: Optional[torch.Tensor]
@@ -135,6 +141,7 @@ class RoutedTables(NamedTuple):
     valT: Optional[torch.Tensor]
     n_rays: int
     n_vox: int
+    cut: Optional[torch.Tensor] = None
 
     @property
     def nnz(self) -> int:
@@ -146,8 +153,8 @@ class RoutedTables(NamedTuple):
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in self[:6]
-                   if t is not None)
+        return sum(t.numel() * t.element_size()
+                   for t in (*self[:6], self.cut) if t is not None)
 
 
 def _live(lin, lens, n_vox):
@@ -214,9 +221,12 @@ def build_tables(lin, lens, n_vox: int, transpose: bool = True,
 # (csrc/routed_variants.cu).
 WIN_G = 1024
 WIN_W = 256
-# the backward's work item: at most this many crossings (a larger chunk is
-# an item of its own); the flagship's hottest window holds ~141,700
-# crossings and its largest chunk ~2,400 (tools/bwd_sweep.py times others)
+# the window-major work item (routed_bwd_window's and routed_fwd_densew's):
+# at most this many crossings (a larger chunk is an item of its own); the
+# flagship's hottest window holds ~141,700 crossings and its largest chunk
+# ~2,400.  tools/bwd_sweep.py and tools/fwd_sweep.py time others: on an
+# H100 (700 W) both read fastest at 4,096 (routed_fwd_densew 0.0786 ms,
+# 0.0847-0.0947 at 2,048, 8,192 and 16,384; PERF.md section 6)
 WIN_K = 4096
 # the forward's piece: each tile's crossings cut into the fewest near-equal
 # runs of at most this many (a cut may fall inside a chunk), one CTA of
@@ -242,10 +252,11 @@ class WindowTables(NamedTuple):
     * ``tile_ptr`` (n_tiles+1,) the chunks of each tile (the forward's
       walk, windows ascending);
     * ``bwd_order`` (NC,) the chunks sorted by (window, tile) and
-      ``win_ptr`` (n_win+1,) each window's range in it (the window-major
-      walk of ``routed_fwd_densew``);
-    * ``item_ptr`` (n_items+1,) the backward's work items as ranges of
-      ``bwd_order``, and ``item_win`` (n_items,) the window of each: every
+      ``win_ptr`` (n_win+1,) each window's range in it;
+    * ``item_ptr`` (n_items+1,) the window-major work items (walked by
+      ``routed_bwd_window`` and ``routed_fwd_densew``, one CTA an item) as
+      ranges of ``bwd_order``, and ``item_win`` (n_items,) the window of
+      each: every
       non-empty window's range cut greedily at chunk boundaries into runs
       of at most ``K`` crossings (a chunk of more is an item alone); an
       empty window has no item;
@@ -303,7 +314,7 @@ class WindowTables(NamedTuple):
 
 
 def _work_items(n, win_ptr, K):
-    """The backward's work items over chunks of sizes ``n`` (in
+    """The window-major work items over chunks of sizes ``n`` (in
     ``bwd_order``) and windows ``win_ptr``: ``item_ptr``, the items' ranges
     of ``bwd_order``.  Each window is cut greedily (an item takes chunks
     while its crossings stay within ``K``, and at least one chunk); all
@@ -348,8 +359,8 @@ def _pieces(cptr, tile_ptr, KF):
 def build_window_tables(lin, lens, n_vox: int, G: int = WIN_G,
                         W: int = WIN_W, K: int = WIN_K, KF: int = WIN_KF,
                         w_dtype: torch.dtype = torch.float32) -> WindowTables:
-    """Build the window chunk table, the backward's work items of at most
-    ``K`` crossings and the forward's pieces of at most ``KF`` from a
+    """Build the window chunk table, the window-major work items of at
+    most ``K`` crossings and the forward's pieces of at most ``KF`` from a
     traced (lin, lens) pair on its device (zero-length slots dropped).
     ``w_dtype`` is the dtype of ``val``: bfloat16 tables feed
     ``routed_fwd_densew`` alone (B7a / B7b take float32)."""
@@ -506,8 +517,9 @@ def _f32_only(name, w):
 
 
 def _aligned(tables, *names):
-    """``routed_fwd_window``'s check: each named table starts on a 16 B
-    boundary (its vector loads read 4 entries from a 4-aligned index)."""
+    """The quad walks' check (``routed_fwd_window``, ``routed_fwd_hist``):
+    each named table starts on a 16 B boundary (their vector loads read 4
+    entries from a 4-aligned index)."""
     for name in names:
         if getattr(tables, name).data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary (the "
@@ -587,6 +599,53 @@ def dense_fwd_atomics(t: RoutedTables, width: int = DENSE_WIDTH) -> int:
     return n
 
 
+# routed_fwd_hist's share: the steps of the merge path of the rays' ends
+# and the crossings a CTA of 256 threads takes (hist_cut), one aligned quad
+# a thread a step.  At the flagship (250,000 rays, 17.1 M crossings) 8,475
+# shares of at most 2,048 crossings.  tools/fwd_sweep.py times others: on
+# an H100 (700 W) the latency of a CTA's chain of loads sets the pace.  With
+# the CTA size, quads a step and the ends' search as run-time choices of
+# the kernel, 8 crossings a thread in 2 steps of one quad at 32 registers
+# (full occupancy) read fastest, 0.0678-0.0723 ms at 1,024-4,096 with CTAs
+# sized to match; 4 or 16 crossings a thread, or 2-4 quads a step,
+# 0.0727-0.2674 ms, and each CTA searching row_ptr for its share's ends in
+# place of the cut table 0.0739-0.0780.  Fixed at 256 threads, share 2,048
+# reads 0.0681 ms, 1,024 0.0714, 4,096 0.0976 (PERF.md section 6)
+HIST_SHARE = 2048
+
+
+def hist_cut(t: RoutedTables, share: int = HIST_SHARE):
+    """``routed_fwd_hist``'s cut of the ray-major CSR into shares: int32
+    (ray, crossing) pairs, shape (n_shares + 1, 2), 8 B a share (67,808 B
+    at the flagship beside its 139,352,436 B CSR).  The merge path takes
+    the crossings in order and each ray's end right after its last crossing
+    (ray i's end at step i + row_ptr[i + 1]); share s is its steps
+    [s·share, (s + 1)·share): the crossings [cut[s, 1], cut[s + 1, 1]) and
+    the ends of rays [cut[s, 0], cut[s + 1, 0]).  So a share holds at most
+    ``share`` crossings and ends, its first ray may have begun in the share
+    before and its last one may go on into the next.  The kernel reads its
+    share's two ends from the table (a search of ``row_ptr`` in each CTA
+    cost 8-10 % of its time)."""
+    total = t.n_rays + t.nnz
+    dev = t.row_ptr.device
+    diag = torch.cat([torch.arange(0, total, share, device=dev),
+                      torch.tensor([total], device=dev)])
+    ends = torch.arange(t.n_rays, device=dev) + t.row_ptr[1:].long()
+    rays = torch.searchsorted(ends, diag)  # the ends before each cut
+    return torch.stack([rays, diag - rays], 1).to(torch.int32)
+
+
+# routed_fwd_densew walks the work items (WIN_K) in CTAs of 128 threads, 4
+# crossings a thread a step, the window's d staged in shared memory.  At
+# the flagship 4,955 items of a mean 3,452 crossings.  tools/fwd_sweep.py
+# chose it with these as run-time choices of the kernel: on an H100 (700
+# W) at the flagship 0.0786 ms, 0.0799 at 256 threads, 0.0921 at 512, 5 %
+# slower with d read through L2, 0.094-0.097 by aligned quads (their
+# in-quad runs issue 10.5 M atomics against 9.0 M); plain stores in place
+# of the atomics 0.0785, so the atomics do not set its pace.  Fixed in the
+# kernel it reads 0.0750-0.0757 ms (PERF.md section 6)
+
+
 def routed_fwd(t: RoutedTables, d):
     """y (R,) = A·d for a flat (V,) density; kernel ``routed_fwd``."""
     if t.row_ptr is None:
@@ -660,15 +719,27 @@ def routed_fwd_dense(t: RoutedTables, d):
 
 
 def routed_fwd_hist(t: RoutedTables, d):
-    """y (R,) = A·d, one CTA per ray tile; kernel ``routed_fwd_hist``."""
+    """y (R,) = A·d over the ray-major CSR, one CTA a share of
+    ``HIST_SHARE`` merge-path steps, its ends read from the cut table
+    ``t.cut`` (:func:`hist_cut`; made here when ``t`` has none); kernel
+    ``routed_fwd_hist``."""
     if t.row_ptr is None:
         raise ValueError("routed_fwd_hist needs the ray-major CSR")
     entry = _entry("routed_fwd_hist", t.val)
     if d.device.type == "cpu":
         return routed_fwd_hist_ref(t, d)
+    n_cuts = -(-(t.n_rays + t.nnz) // HIST_SHARE) + 1
+    if t.cut is not None and (t.cut.dtype != torch.int32
+                              or t.cut.shape != (n_cuts, 2)):
+        raise ValueError(f"cut table {t.cut.dtype} {tuple(t.cut.shape)} is "
+                         f"not hist_cut(t, {HIST_SHARE}): int32 "
+                         f"({n_cuts}, 2)")
     d = _check(d, t.n_vox, "density", t)
+    _aligned(t, "col", "val")
+    cut = hist_cut(t) if t.cut is None else t.cut
     y = torch.empty(t.n_rays, dtype=torch.float32, device=d.device)
-    launch(entry, (t.row_ptr, t.col, t.val, d, y), (t.n_rays,))
+    launch(entry, (t.row_ptr, t.col, t.val, cut, d, y),
+           (t.n_rays, t.nnz, HIST_SHARE))
     return y
 
 
@@ -706,16 +777,18 @@ def routed_bwd_window(t: WindowTables, dy):
 
 
 def routed_fwd_densew(t: WindowTables, d):
-    """y (R,) = A·d over the window chunk table, window-major, by atomics;
-    kernel ``routed_fwd_densew``."""
+    """y (R,) = A·d over the window chunk table, window-major, one CTA a
+    work item (``t.item_ptr``), by global atomics; kernel
+    ``routed_fwd_densew``."""
     entry = _entry("routed_fwd_densew", t.val)
     if d.device.type == "cpu":
         return routed_fwd_densew_ref(t, d)
     d = _check(d, t.n_vox, "density", t)
     y = torch.empty(t.n_rays, dtype=torch.float32, device=d.device)
     launch(entry,
-           (t.win_ptr, t.bwd_order, t.ckey, t.cptr, t.loc, t.val, d, y),
-           (t.n_win, t.n_rays, t.n_vox, t.G, t.W))
+           (t.item_ptr, t.item_win, t.bwd_order, t.ckey, t.cptr, t.loc, t.val,
+            d, y),
+           (t.n_win, t.n_rays, t.n_vox, t.n_items, t.G, t.W))
     return y
 
 
@@ -731,8 +804,8 @@ BACKWARDS = {"auto": routed_bwd_gather, "bwd": routed_bwd_gather,
              "both": routed_bwd_gather, "off": routed_bwd_scatter,
              "fwd": routed_bwd_scatter}
 
-# the table each wrapper reads
-_READS = {routed_fwd: "csr", routed_fwd_hist: "csr",
+# the tables each wrapper reads ('csr+cut': the CSR and its cut table)
+_READS = {routed_fwd: "csr", routed_fwd_hist: "csr+cut",
           routed_bwd_scatter: "csr", routed_fwd_dense: "transpose",
           routed_bwd_gather: "transpose", routed_fwd_window: "window",
           routed_bwd_window: "window"}
@@ -762,13 +835,15 @@ def resolve(config):
 
 def build_for(lin, lens, n_vox: int, *wrappers,
               w_dtype: torch.dtype = torch.float32):
-    """The tables that ``wrappers`` read, and nothing more, with weights
-    of ``w_dtype``."""
+    """The tables that ``wrappers`` read (:data:`_READS`), and nothing
+    more, with weights of ``w_dtype``; a 'csr+cut' read adds the CSR's cut
+    table (:func:`hist_cut` at :data:`HIST_SHARE`)."""
     reads = {_READS[w] for w in wrappers}
     if "window" in reads:
         return build_window_tables(lin, lens, n_vox, w_dtype=w_dtype)
-    return build_tables(lin, lens, n_vox, transpose="transpose" in reads,
-                        csr="csr" in reads, w_dtype=w_dtype)
+    t = build_tables(lin, lens, n_vox, transpose="transpose" in reads,
+                     csr=bool(reads & {"csr", "csr+cut"}), w_dtype=w_dtype)
+    return t._replace(cut=hist_cut(t)) if "csr+cut" in reads else t
 
 
 class _RoutedProject(torch.autograd.Function):

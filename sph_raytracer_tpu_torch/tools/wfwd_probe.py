@@ -53,7 +53,8 @@ CONFIGS = {
     "flagship": ((50, 50, 50), 50, (50, 100)),
     "vol100": ((100, 100, 100), 50, (50, 100)),
 }
-_WARP = 32  # crossings a warp of routed_fwd_densew takes at a time
+_WARP = 32  # crossings a warp of routed_fwd_densew takes a step
+DENSEW_BLOCK = 128  # its CTA size (kDensewBlock, csrc/routed_variants.cu)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SEED = 0      # of the probe's density
 N_TIMED = 20  # launches a kernel's time is the mean of
@@ -69,21 +70,41 @@ def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def densew_atomics(t: rp.WindowTables):
+def densew_atomics(t: rp.WindowTables, threads=DENSEW_BLOCK):
     """``(runs, atomics)`` of ``routed_fwd_densew`` over chunk table ``t``:
     the (ray, chunk) pairs that hold a crossing, and the global adds the
-    kernel issues — one per run in each 32-crossing slice of a chunk (a
-    warp's share, counted from the chunk's start)."""
+    kernel issues.
+
+    The kernel walks each work item's chunks ``threads`` at a time (its
+    CTA size; a smaller one lets a small table span several batches), laid
+    end to end (a batch); a warp takes 32 consecutive crossings of a
+    batch, one a lane, and adds one run of one ray in each warp's slice."""
     ray, _ = rp._window_ids(t)
-    n = torch.diff(t.cptr).long()
-    cid = torch.repeat_interleave(torch.arange(n.shape[0], device=n.device),
-                                  n, output_size=t.nnz)
-    pos = torch.arange(t.nnz, device=n.device) - t.cptr[:-1].long()[cid]
-    # a chunk's crossings are sorted by ray, so a run starts where the
-    # chunk or the ray changes
-    new_run = torch.ones(t.nnz, dtype=torch.bool, device=n.device)
-    new_run[1:] = (cid[1:] != cid[:-1]) | (ray[1:] != ray[:-1])
-    return int(new_run.sum()), int((new_run | (pos % _WARP == 0)).sum())
+    dev = t.loc.device
+    order = t.bwd_order.long()
+    n = torch.diff(t.cptr).long()[order]   # the chunks in walk order
+    nc = n.shape[0]
+    ip = t.item_ptr.long()
+    item = torch.repeat_interleave(torch.arange(t.n_items, device=dev),
+                                   torch.diff(ip), output_size=nc)
+    j = torch.arange(nc, device=dev)
+    # each chunk's batch, and its first crossing in the batch
+    bkey = item * (nc + 1) + (j - ip[:-1][item]) // threads
+    new_b = torch.ones(nc, dtype=torch.bool, device=dev)
+    new_b[1:] = bkey[1:] != bkey[:-1]
+    batch = torch.cumsum(new_b.long(), 0) - 1
+    cu = torch.cumsum(n, 0) - n
+    first = cu - cu[new_b][batch]
+    # each crossing in walk order: its chunk, ray and warp slice
+    cid = torch.repeat_interleave(j, n, output_size=t.nnz)
+    pos = torch.arange(t.nnz, device=dev) - cu[cid]
+    r = ray[t.cptr[:-1].long()[order][cid] + pos]
+    slice_id = batch[cid] * (t.nnz + 1) + (first[cid] + pos) // _WARP
+    new_run = torch.ones(t.nnz, dtype=torch.bool, device=dev)
+    new_run[1:] = (cid[1:] != cid[:-1]) | (r[1:] != r[:-1])
+    new_slice = torch.ones(t.nnz, dtype=torch.bool, device=dev)
+    new_slice[1:] = slice_id[1:] != slice_id[:-1]
+    return int(new_run.sum()), int((new_slice | new_run).sum())
 
 
 def cuda_ms(fn, n=N_TIMED, warm=3):
@@ -140,8 +161,8 @@ def probe(config="vol100", device=None, w_dtype="f32"):
              "routed_fwd_window": (win32, (win32.tile_ptr, win32.piece_ptr,
                                            win32.piece_chunk, *common,
                                            win32.val)),
-             "routed_fwd_densew": (win, (win.win_ptr, win.bwd_order,
-                                         *common, win.val))}
+             "routed_fwd_densew": (win, (win.item_ptr, win.item_win,
+                                         win.bwd_order, *common, win.val))}
     ys, records = {}, []
     for name, (tab, ts) in reads.items():
         kern = getattr(rp, name)

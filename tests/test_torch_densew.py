@@ -114,23 +114,33 @@ def test_probe_on_cpu():
 
 
 def test_densew_atomics_counts_runs_and_slices():
-    """Two chunks of one tile: rays 0,0,1 in the first; 40 crossings of
-    ray 2 in the second (a 32-crossing slice boundary inside the run)."""
+    """Two chunks of one tile, each a work item of its own window: rays
+    0,0,1 in the first; 40 crossings of ray 2 in the second (a 32-crossing
+    slice boundary inside the run).  An atomic a run in each warp's
+    32-crossing slice of an item's walk: 2 in the first item, 2 in the
+    second."""
     lin = torch.tensor([[0, 1] + [0] * 39, [2] + [0] * 40, [300] * 41],
                        dtype=torch.int32)
     lens = torch.zeros(3, 41)
     lens[0, :2] = lens[1, 0] = 1.0
     lens[2, :40] = 1.0
     t = rp.build_window_tables(lin, lens, 512, G=4, W=256)
-    assert len(t.ckey) == 2 and t.nnz == 43
+    assert len(t.ckey) == 2 and t.nnz == 43 and t.n_items == 2
     assert wfwd_probe.densew_atomics(t) == (3, 4)
 
 
 @pytest.mark.parametrize("a,b,atomics", [
-    (1, 1, 2), (31, 1, 2), (32, 1, 2), (33, 40, 4), (5, 100, 5)])
+    (1, 1, 2), (31, 1, 2), (32, 1, 2), (33, 40, 4), (5, 100, 5),
+    # ray 0 over slices 0-4, ray 1 inside slice 4
+    (129, 4, 6),
+    # each ray over two whole slices
+    (64, 64, 4),
+    # ray 1 from slice 0 to slice 6
+    (1, 200, 8)])
 def test_densew_atomics_in_one_chunk(a, b, atomics):
-    """Ray 0 with ``a`` crossings, then ray 1 with ``b``, in one chunk: two
-    runs; an atomic at each run's start and at each 32-crossing slice."""
+    """Ray 0 with ``a`` crossings, then ray 1 with ``b``, in one chunk (one
+    work item): two runs; an atomic at each run's start and at each
+    32-crossing slice."""
     lin = torch.zeros(2, max(a, b), dtype=torch.int32)
     lens = torch.zeros(2, max(a, b))
     lens[0, :a] = lens[1, :b] = 1.0

@@ -11,8 +11,12 @@ and with the lerp; the routed variants on synthetic tables with empty
 rays, empty windows and a last tile of one ray; the window backward on a
 window cut into several work items, the window forward on tiles cut into
 several pieces at each CTA size, the dense forward at each atomic width and
-at ray counts that are not a multiple of 4, the scatter backward on tiles
-that overflow its shared table), each ``<name>_bf16`` instantiation against its
+at ray counts that are not a multiple of 4, the window-major forward on a
+hot window cut into several work items, the merge-path forward on rays
+longer than a share, runs of empty rays and a last partial share at each
+share size, the scatter
+backward on tiles that overflow its shared table), each ``<name>_bf16``
+instantiation against its
 plain version on bf16 tables, and one training step of each routed
 configuration (f32 and bf16 weights) and of fused mode on the card
 against the CPU.
@@ -73,7 +77,7 @@ def _synthetic(seed, R, V, M, vox=None, empty=0.1, long_ray=0):
     """A (lin, lens) table of R rays x M slots: voxel ids drawn from
     ``vox`` (default all V), a share ``empty`` of rays without crossings,
     zero-length slots scattered, and ray 0 given ``long_ray`` crossings
-    (longer than a thread's share of a hist tile)."""
+    (longer than a share of routed_fwd_hist)."""
     rng = np.random.default_rng(seed)
     M = max(M, long_ray)
     vox = np.arange(V) if vox is None else np.asarray(vox)
@@ -87,9 +91,9 @@ def _synthetic(seed, R, V, M, vox=None, empty=0.1, long_ray=0):
     return torch.tensor(lin, dtype=torch.int32), torch.tensor(lens)
 
 
-# R = 2·1024 + 1 = 8·256 + 1: the last window tile (WIN_G = 1024) and the
-# last hist tile (256 rays) hold one ray; the third case draws its voxels
-# from two ranges of 300, so most windows are empty
+# R = 2·1024 + 1: the last window tile (WIN_G = 1024) holds one ray; the
+# second case's ray 0 (3,000 crossings) spans hist shares; the third case
+# draws its voxels from two ranges of 300, so most windows are empty
 VARIANT_CASES = [dict(R=1, V=7, M=4),
                  dict(R=2049, V=1541, M=48, long_ray=3000),
                  dict(R=2049, V=9000, M=40,
@@ -249,6 +253,75 @@ def test_dense_forward_groups(cuda, R):
         for bwd in (rp.routed_bwd_gather, rp.routed_bwd_scatter):
             assert _adjoint_rel(rp.routed_fwd_dense, bwd, t, gen,
                                 cuda) <= 1e-5
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_densew_walks_a_hot_window_in_items(cuda, w_dtype):
+    """routed_fwd_densew on window 0 of ~48,000 crossings cut into work
+    items of at most 4,000 (window 1, 3,821 crossings, one item), and on
+    an item of more chunks than a CTA takes at once, against the plain
+    version; the adjoint identity with routed_bwd_window on the
+    f32 table of the same rounded lengths."""
+    lin, lens = _synthetic(5, R=2049, V=600, M=40, vox=np.r_[0:256, 400:420])
+    t = rp.build_window_tables(lin.to(cuda), lens.to(cuda), 600, G=64,
+                               K=4000, w_dtype=w_dtype)
+    assert int((t.item_win == 0).sum()) > 1
+    assert int((t.item_win == 1).sum()) == 1
+    gen = torch.Generator().manual_seed(5)
+    d = torch.rand(600, generator=gen).to(cuda)
+    want = rp.routed_fwd_densew_ref(t, d)
+    entry = rp._entry("routed_fwd_densew", t.val)
+    before = rp.LAUNCHES[entry]
+    torch.testing.assert_close(rp.routed_fwd_densew(t, d), want, rtol=1e-4,
+                               atol=1e-5 * float(want.abs().max()))
+    assert rp.LAUNCHES[entry] == before + 1
+    # tiles of 16 rays: window 0's 129 chunks in one item, taken by the CTA
+    # in two batches
+    t2 = rp.build_window_tables(lin.to(cuda), lens.to(cuda), 600, G=16,
+                                K=10 ** 6, w_dtype=w_dtype)
+    assert int(torch.diff(t2.item_ptr).max()) > 128
+    want2 = rp.routed_fwd_densew_ref(t2, d)
+    torch.testing.assert_close(rp.routed_fwd_densew(t2, d), want2, rtol=1e-4,
+                               atol=1e-5 * float(want2.abs().max()))
+    t32 = t._replace(val=t.val.float())
+    x = torch.randn(600, generator=gen).to(cuda)
+    y = torch.randn(t.n_rays, generator=gen).to(cuda)
+    lhs = float(torch.dot(rp.routed_fwd_densew(t, x).double(), y.double()))
+    rhs = float(torch.dot(x.double(), rp.routed_bwd_window(t32, y).double()))
+    assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+
+
+@pytest.mark.parametrize("R", [2049, 2050, 2051])
+def test_hist_shares_cut_rays(cuda, R):
+    """routed_fwd_hist (f32 and bf16) at R ≡ 1, 2, 3 (mod 4) on a table
+    whose ray 0 is longer than a share, with a run of 300 empty rays and
+    a last, partial share: at every share size of the sweep (and shares of
+    37 steps, which cut most rays) against the plain version (empty rays
+    0), and through the wrapper with the cut table it makes for tables
+    without one; the adjoint identity with routed_bwd_gather."""
+    lin, lens = _synthetic(R, R=R, V=1541, M=48, long_ray=5000)
+    lens[100:400] = 0
+    gen = torch.Generator().manual_seed(R)
+    d = torch.rand(1541, generator=gen).to(cuda)
+    for w_dtype in (torch.float32, torch.bfloat16):
+        t = rp.build_tables(lin.to(cuda), lens.to(cuda), 1541,
+                            w_dtype=w_dtype)
+        assert int(torch.diff(t.row_ptr).max()) == 5000
+        empty = torch.diff(t.row_ptr) == 0
+        want = rp.routed_fwd_hist_ref(t, d)
+        for share in (37, *fwd_sweep.HIST_SHARES):
+            got = fwd_sweep.hist_fwd(t, d, share, rp.hist_cut(t, share))
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=1e-4,
+                                       atol=1e-5 * float(want.abs().max()))
+            assert not bool(got[empty].any())
+        assert t.cut is None
+        got = rp.routed_fwd_hist(t, d)
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-5 * float(want.abs().max()))
+        assert not bool(got[empty].any())
+        assert _adjoint_rel(rp.routed_fwd_hist, rp.routed_bwd_gather, t, gen,
+                            cuda) <= 1e-5
 
 
 def test_scatter_table_overflow(cuda):

@@ -88,6 +88,13 @@ def test_variant_matches_jax(name, tmp_path_factory):
         assert jop._dense == (name == "both", True)
     op = _port(**cfg)
     assert (op._fwd, op._bwd) == (fwd, bwd)
+    # routed_fwd_hist's tables carry its cut table, and only its
+    cut = getattr(op._tables, "cut", None)
+    assert (cut is not None) == (name == "hist")
+    if cut is not None:
+        assert torch.equal(cut, rp.hist_cut(op._tables))
+        assert op._tables.nbytes == op._tables._replace(
+            cut=None).nbytes + cut.numel() * 4
     img, grad, T = _image_grad_T(op, jimg)
     np.testing.assert_allclose(img, jimg, **TOL)
     np.testing.assert_allclose(grad, jgrad, **TOL)
@@ -387,6 +394,137 @@ def test_forward_piece_walk(request, name, KF):
                                atol=1e-6 * float(want.abs().max()))
 
 
+def _densew_walk(t, d, threads):
+    """y by a plain walk over the work items as routed_fwd_densew takes
+    them, and the global adds it makes: each item's chunks ``threads`` at a
+    time laid end to end, 32 crossings a warp's slice, each run of one ray
+    in a slice summed and added once."""
+    ray, vox = rp._window_ids(t)
+    prod = (d[vox] * t.val.float()).tolist()
+    ray, cp = ray.tolist(), t.cptr.tolist()
+    order, ip = t.bwd_order.tolist(), t.item_ptr.tolist()
+    y = torch.zeros(t.n_rays, dtype=torch.float64)
+    adds = 0
+    for i in range(t.n_items):
+        chunks = order[ip[i]:ip[i + 1]]
+        for b in range(0, len(chunks), threads):
+            walk = [k for c in chunks[b:b + threads]
+                    for k in range(cp[c], cp[c + 1])]
+            for w in range(0, len(walk), 32):
+                runs = []
+                for k in walk[w:w + 32]:
+                    if runs and runs[-1][0] == ray[k]:
+                        runs[-1][1] += prod[k]
+                    else:
+                        runs.append([ray[k], prod[k]])
+                for r, x in runs:
+                    y[r] += x
+                adds += len(runs)
+    return y.float(), adds
+
+
+@pytest.mark.parametrize("name,K,G,threads", [
+    ("traced", 100, 16, 128), ("traced", 1, 16, 128), ("hot", 40, 8, 128),
+    # windows of more chunks than a batch (as a CTA of fewer threads would
+    # take them), walked in several batches: 27 tiles of 4 rays; the hot
+    # window's 5 chunks in one item
+    ("traced", 10 ** 6, 4, 8), ("traced", 10 ** 6, 4, 16),
+    ("hot", 10 ** 6, 8, 2)])
+def test_densew_item_walk(request, name, K, G, threads):
+    """routed_fwd_densew's walk over the work items (a hot window split
+    into several, or one item walked in several batches) equals the plain
+    version, and issues the global adds that wfwd_probe.densew_atomics
+    counts."""
+    from sph_raytracer_tpu_torch.tools.wfwd_probe import densew_atomics
+
+    if name == "hot":
+        t = _hot_window_table(K)
+        assert (int((t.item_win == 0).sum()) > 1) == (K == 40)
+    else:
+        lin, lens, V = request.getfixturevalue("traced")
+        t = rp.build_window_tables(lin, lens, V, G=G, W=64, K=K)
+        windows = int((torch.diff(t.win_ptr) > 0).sum())
+        assert (t.n_items == windows) == (K == 10 ** 6)
+    d = torch.tensor(np.random.default_rng(11).random(t.n_vox),
+                     dtype=torch.float32)
+    want = rp.routed_fwd_densew_ref(t, d)
+    y, adds = _densew_walk(t, d, threads)
+    torch.testing.assert_close(y, want, rtol=1e-6,
+                               atol=1e-6 * float(want.abs().max()))
+    runs, atomics = densew_atomics(t, threads)
+    assert atomics == adds and runs <= adds < t.nnz
+    if threads < 128:
+        assert int(torch.diff(t.item_ptr).max()) > threads
+
+
+def _hist_table(R):
+    """A hand-made ray-major CSR: ray 3 of 30 crossings (longer than a
+    share), rays 10-20 empty, R - 1 empty, the others 0-12 crossings."""
+    rng = np.random.default_rng(R)
+    lens = torch.tensor(rng.random((R, 30)) + 0.1, dtype=torch.float32)
+    lens[:, 12:] = 0
+    lens[torch.arange(R), torch.tensor(rng.integers(0, 13, R))] = 0
+    lens[3] = 0.5
+    lens[10:21] = 0
+    lens[R - 1] = 0
+    lin = torch.tensor(rng.integers(0, 50, (R, 30)), dtype=torch.int32)
+    return rp.build_tables(lin, lens, 50, transpose=False)
+
+
+@pytest.mark.parametrize("R,share", [(45, 7), (46, 7), (47, 7), (48, 7),
+                                     (45, 16), (46, 1), (45, 31),
+                                     (47, 1000)])
+def test_hist_share_cut(R, share):
+    """routed_fwd_hist's merge-path shares at R ≡ 1, 2, 3 (mod 4): they
+    cover every crossing and every ray's end once, each holds at most
+    ``share`` of them; summing each share's crossings, storing the rays
+    that lie wholly in it and adding the rays its ends cut gives the plain
+    version, and each empty ray is written 0."""
+    t = _hist_table(R)
+    cut = rp.hist_cut(t, share)
+    assert cut.dtype == torch.int32
+    rays, ks = cut[:, 0].long(), cut[:, 1].long()
+    n = rays.numel() - 1
+    assert n == -(-(R + t.nnz) // share)
+    assert (int(rays[0]), int(ks[0]), int(rays[-1]), int(ks[-1])) == (
+        0, 0, R, t.nnz)
+    steps = torch.diff(rays) + torch.diff(ks)
+    assert bool((steps[:-1] == share).all()) and 0 < int(steps[-1]) <= share
+    assert bool((torch.diff(rays) >= 0).all() & (torch.diff(ks) >= 0).all())
+    rp_ = t.row_ptr.long()
+    d = torch.tensor(np.random.default_rng(12).random(50),
+                     dtype=torch.float32)
+    prod = d[t.col.long()] * t.val
+    row = rp._row_ids(t.row_ptr, t.nnz)
+    y = torch.full((R,), float("nan"))
+    cut = torch.zeros(R)       # the adds of cut rays, into a zeroed y
+    stored = torch.zeros(R, dtype=torch.long)
+    for s in range(n):
+        i0, k0, i1, k1 = (int(rays[s]), int(ks[s]), int(rays[s + 1]),
+                          int(ks[s + 1]))
+        # the rays the share touches: its crossings' and its ends'
+        last = min(i1, R - 1)
+        assert k1 <= int(rp_[last + 1]) and int(rp_[i0]) <= k0
+        part = torch.zeros(last - i0 + 1).index_add_(
+            0, row[k0:k1] - i0, prod[k0:k1])
+        for j, r in enumerate(range(i0, last + 1)):
+            if r < i1 and int(rp_[r]) >= k0:
+                y[r] = part[j]
+                stored[r] += 1
+            else:
+                cut[r] += part[j]
+    y = torch.where(stored == 1, y, cut)
+    empty = torch.diff(t.row_ptr) == 0
+    assert bool(empty[10:21].all()) and bool(empty[-1])
+    assert bool((stored <= 1).all()) and bool((stored[empty] == 1).all())
+    assert bool((y[empty] == 0).all())
+    assert int(torch.diff(t.row_ptr).max()) == 30
+    assert share >= 30 or bool((stored[3] == 0))  # ray 3 is cut
+    want = rp.routed_fwd_hist_ref(t, d)
+    torch.testing.assert_close(y, want, rtol=1e-6,
+                               atol=1e-6 * float(want.abs().max()))
+
+
 def _dense_group_sums(t, d, width):
     """y by a plain emulation of routed_fwd_dense's grouped sums: in each
     32-crossing step of a voxel's list, each run of equal ray // width cut
@@ -503,6 +641,10 @@ def test_scatter_atomics(rows, tile, pairs):
     (lambda t, w: rp.build_window_tables(
         torch.zeros(1, 1, dtype=torch.int32), torch.ones(1, 1), 4,
         G=2 ** 14), "would pass 48 KB"),
+    # a cut table built for another share size
+    (lambda t, w: rp.routed_fwd_hist(
+        t._replace(cut=rp.hist_cut(t, rp.HIST_SHARE // 2)),
+        torch.ones(t.n_vox, device="meta")), "is not hist_cut"),
 ])
 def test_redesigned_wrappers_reject_wrong_input(traced, call, match):
     """What the two redesigned kernels do not take raises (a ``meta``
