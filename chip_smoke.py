@@ -18,7 +18,11 @@ Phases (any failure raises and exits non-zero):
    at the flagship's shapes, plus the adjoint identity; the global atomics
    ``routed_bwd_scatter`` issues (its own counts: one a distinct (ray tile,
    voxel) pair, plus any crossing that overflowed its tile's shared
-   table) against one a crossing before the tiles;
+   table) against one a crossing before the tiles; ``routed_fwd`` and
+   ``routed_bwd_gather`` bitwise equal over two launches, and both, f32
+   and bf16, on synthetic rows of 0 to 2,000 crossings at every start
+   offset mod 4 (against their plain versions, run to run, adjoint with
+   each partner) and refusing tables not on 16 B (``csr_walk_checks``);
 5. goldens on the card: ``tests/goldens/collection_orbit.npz`` through the
    CUDA kernels (float64 trace, float32 tables), and the float32 routed
    ``Operator`` on the card against the same operator on the CPU;
@@ -194,6 +198,68 @@ def fused_bytes(n_rays, n_flat, off0, lerp):
     return n_rays * per_ray + 4 * n_flat + 5120
 
 
+def csr_walk_checks(torch, rp, csr_case, dev):
+    """``routed_fwd`` (B1) and ``routed_bwd_gather`` (B2), f32 and bf16, on
+    rows of 0 to 2,000 crossings at every start offset mod 4
+    (``tools.bwd_sweep.csr_case``) at R = V ≡ 1, 2, 3 (mod 32): against
+    their plain versions at rtol 1e-5, bitwise equal over two launches,
+    adjoint (rel ≤ 1e-8, x, y ≥ 0) with B2 and B3 (B1) and with B5 and B6
+    (B2) on the same rounded lengths; then each refuses an index or weight
+    table that does not start on 16 B."""
+    for w_dtype in (torch.float32, torch.bfloat16):
+        for residue in (1, 2, 3):
+            n = 80000 + residue
+            lin, lens = csr_case(residue, n, n, dev)
+            t = rp.build_tables(lin, lens, n, w_dtype=w_dtype)
+            del lin, lens
+            gen = torch.Generator().manual_seed(residue)
+            x = torch.rand(n, generator=gen).to(dev)
+            y = torch.rand(n, generator=gen).to(dev)
+            for kern, inp in ((rp.routed_fwd, x), (rp.routed_bwd_gather, y)):
+                name = rp._entry(kern.__name__, t.val)
+                got = kern(t, inp)
+                want = getattr(rp, f"{kern.__name__}_ref")(t, inp)
+                check_close(f"{name} rows of 0-2,000 (R = V = {n})", got,
+                            want, 1e-5, 1e-5 * float(want.abs().max()))
+                if not torch.equal(got, kern(t, inp)):
+                    raise AssertionError(f"{name} differs run to run")
+            rels = []
+            ax = float(torch.dot(rp.routed_fwd(t, x).double(), y.double()))
+            aty = float(torch.dot(x.double(),
+                                  rp.routed_bwd_gather(t, y).double()))
+            for fwd, bwd in ((rp.routed_fwd, rp.routed_bwd_gather),
+                             (rp.routed_fwd, rp.routed_bwd_scatter),
+                             (rp.routed_fwd_dense, rp.routed_bwd_gather),
+                             (rp.routed_fwd_hist, rp.routed_bwd_gather)):
+                lhs = ax if fwd is rp.routed_fwd else float(
+                    torch.dot(fwd(t, x).double(), y.double()))
+                rhs = aty if bwd is rp.routed_bwd_gather else float(
+                    torch.dot(x.double(), bwd(t, y).double()))
+                rels.append(abs(lhs - rhs) / abs(lhs))
+                if not rels[-1] <= 1e-8:
+                    raise AssertionError(f"adjoint identity fails for "
+                                         f"{fwd.__name__}/{bwd.__name__}")
+            log(f"[check] {w_dtype} R = V = {n}: both bitwise equal run to "
+                f"run; adjoint rel B1/B2 {rels[0]:.3e}, B1/B3 {rels[1]:.3e},"
+                f" B5/B2 {rels[2]:.3e}, B6/B2 {rels[3]:.3e}")
+    before = dict(rp.LAUNCHES)
+    for kern, inp, names in ((rp.routed_fwd, x, ("col", "val")),
+                             (rp.routed_bwd_gather, y, ("ray", "valT"))):
+        for name in names:
+            a = getattr(t, name)
+            buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=dev)
+            buf[1:] = a
+            try:
+                kern(t._replace(**{name: buf[1:]}), inp)
+            except ValueError:
+                continue
+            raise AssertionError(f"{kern.__name__} took a {name} table 4 B "
+                                 "past a 16 B boundary")
+    if dict(rp.LAUNCHES) != before:
+        raise AssertionError("a refused table launched a kernel")
+    log("[check] routed_fwd / routed_bwd_gather refuse tables not on 16 B")
+
+
 def orbit(prt, views, det, z=0.3):
     return sum(prt.ConeRectGeom(det, pos=(2 * np.cos(t), 2 * np.sin(t), z),
                                 fov=(45, 45))
@@ -222,6 +288,7 @@ def main(argv):
     from sph_raytracer_tpu_torch.ops.project import precompute_table
     from sph_raytracer_tpu_torch.ops.trace import GridSpec
     from sph_raytracer_tpu_torch.tools import wfwd_probe
+    from sph_raytracer_tpu_torch.tools.bwd_sweep import csr_case
     from sph_raytracer_tpu_torch.tools.wfwd_probe import (HBM_BYTES_PER_S,
                                                           cuda_ms)
 
@@ -298,9 +365,18 @@ def main(argv):
         rhs = float(torch.dot(d.double(), bwd(tab, dyp).double()))
         rel = abs(lhs - rhs) / abs(lhs)
         log(f"[check] adjoint <Ax,y>=<x,A'y> {bwd.__name__}: rel {rel:.3e}")
-        if not rel <= 1e-5:
+        if not rel <= 1e-8:
             raise AssertionError(f"adjoint identity fails for {bwd.__name__}")
+    # the forward and the gather sum in a fixed order: bitwise run to run
+    for kern, x in ((rp.routed_fwd, d), (rp.routed_bwd_gather, dy)):
+        if not torch.equal(kern(tab, x), kern(tab, x)):
+            raise AssertionError(f"{kern.__name__} differs run to run")
+        log(f"[check] {kern.__name__}: two launches bitwise equal")
+    # the synthetic tables (~1.3 GB) stay out of the peak memory of [step]
+    peak = torch.cuda.max_memory_allocated()
+    csr_walk_checks(torch, rp, csr_case, dev)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     # 5. goldens on the card -------------------------------------------------
     g = np.load(os.path.join(HERE, "tests", "goldens",
@@ -393,9 +469,9 @@ def main(argv):
 
     one = make_step(op, y)
     step_ms = cuda_ms(one, n=30, warm=5)
+    peak = max(peak, torch.cuda.max_memory_allocated())
     log(f"[step] {step_ms:.4f} ms/step, {R / (step_ms * 1e-3):.6g} rays/s "
-        f"(fwd+bwd, {R} rays), peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        f"(fwd+bwd, {R} rays), peak memory {peak / 2**30:.3f} GiB")
 
     A = torch.sparse_csr_tensor(tab.row_ptr, tab.col, tab.val, size=(R, V),
                                 check_invariants=False)

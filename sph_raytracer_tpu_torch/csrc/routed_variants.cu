@@ -273,28 +273,6 @@ __device__ __forceinline__ bool warp_run_sum(int key, float& x) {
   return key >= 0 && (lane == kWarp - 1 || next != key);
 }
 
-// The indices idx[k0..k0+3] and weights val[k0..k0+3] (widened to f32) of
-// the 4-aligned quad at k0 of an n-crossing table: two vector loads (the
-// tables' bases are aligned; ops/routed_project.py checks it), or scalar
-// ones (0 past n) for the table's last, partial quad.
-template <typename Weight>
-__device__ __forceinline__ void load_quad(const int* __restrict__ idx,
-                                          const Weight* __restrict__ val,
-                                          int k0, int n, int (&p)[4],
-                                          float (&w)[4]) {
-  if (k0 + 4 <= n) {
-    const int4 pv = __ldg(reinterpret_cast<const int4*>(idx + k0));
-    p[0] = pv.x, p[1] = pv.y, p[2] = pv.z, p[3] = pv.w;
-    load_w4(val + k0, w);
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    p[j] = k0 + j < n ? __ldg(idx + k0 + j) : 0;
-    w[j] = k0 + j < n ? load_w(val + k0 + j) : 0.f;
-  }
-}
-
 // The CTA size of routed_fwd_hist: 8 crossings a thread in two steps of
 // one quad at the default share, at 32 registers (full occupancy)
 constexpr int kHistBlock = 256;

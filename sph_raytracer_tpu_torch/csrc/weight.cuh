@@ -1,4 +1,5 @@
-// The weight (segment length) load shared by the routed kernels.
+// The weight (segment length) loads shared by the routed kernels, and
+// their aligned quad load of an index table beside its weights.
 //
 // A weight table holds float32 or, with routed_w_dtype='bf16', bfloat16
 // lengths (sph_raytracer_tpu_torch/ops/routed_project.py build_tables /
@@ -30,4 +31,26 @@ __device__ __forceinline__ void load_w4(const __nv_bfloat16* p,
   const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
   w[0] = __uint_as_float(v.x << 16), w[1] = __uint_as_float(v.x & 0xffff0000u);
   w[2] = __uint_as_float(v.y << 16), w[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+
+// The indices idx[k0..k0+3] and weights val[k0..k0+3] (widened to f32) of
+// the 4-aligned quad at k0 of an n-crossing table: two vector loads (the
+// tables' bases are aligned; ops/routed_project.py checks it), or scalar
+// ones (0 past n) for the table's last, partial quad.
+template <typename Weight>
+__device__ __forceinline__ void load_quad(const int* __restrict__ idx,
+                                          const Weight* __restrict__ val,
+                                          int k0, int n, int (&p)[4],
+                                          float (&w)[4]) {
+  if (k0 + 4 <= n) {
+    const int4 pv = __ldg(reinterpret_cast<const int4*>(idx + k0));
+    p[0] = pv.x, p[1] = pv.y, p[2] = pv.z, p[3] = pv.w;
+    load_w4(val + k0, w);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    p[j] = k0 + j < n ? __ldg(idx + k0 + j) : 0;
+    w[j] = k0 + j < n ? load_w(val + k0 + j) : 0.f;
+  }
 }

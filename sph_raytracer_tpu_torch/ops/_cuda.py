@@ -54,12 +54,16 @@ _ENTRIES = {
     "routed_bwd_window": [_P] * 10 + [_I] * 5 + [_P],
     "routed_fwd_densew": [_P] * 9 + [_I] * 6 + [_P],
     "fused_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # routed_fwd's and routed_bwd_gather's walk at other settings (the
+    # sweeps' entry)
+    "routed_csr_dot": [_P] * 5 + [_I] * 3 + [_P],
 }
 # the kernels templated on their weight type: each has a bfloat16 entry
 # ``<name>_bf16`` with the float32 entry's arguments
 BF16_ENTRIES = tuple(f"{n}_bf16" for n in (
     "routed_fwd", "routed_bwd_gather", "routed_bwd_scatter",
-    "routed_fwd_dense", "routed_fwd_hist", "routed_fwd_densew"))
+    "routed_fwd_dense", "routed_fwd_hist", "routed_fwd_densew",
+    "routed_csr_dot"))
 _ENTRIES.update({n: _ENTRIES[n[:-len("_bf16")]] for n in BF16_ENTRIES})
 
 # kernel launches per wrapper; each wrapper adds one where it launches its

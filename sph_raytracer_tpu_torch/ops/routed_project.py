@@ -88,6 +88,11 @@ __all__ = [
     "hist_cut",
     "DENSE_WIDTH",
     "DENSE_SPREAD",
+    "FWD_LANES",
+    "FWD_QUADS",
+    "BWD_LANES",
+    "BWD_QUADS",
+    "CSR_BLOCK",
     "SCATTER_TILE",
     "SCATTER_SLOTS",
     "scatter_atomics",
@@ -517,7 +522,8 @@ def _f32_only(name, w):
 
 
 def _aligned(tables, *names):
-    """The quad walks' check (``routed_fwd_window``, ``routed_fwd_hist``):
+    """The quad walks' check (``routed_fwd``, ``routed_bwd_gather``,
+    ``routed_fwd_window``, ``routed_fwd_hist``):
     each named table starts on a 16 B boundary (their vector loads read 4
     entries from a 4-aligned index)."""
     for name in names:
@@ -646,6 +652,24 @@ def hist_cut(t: RoutedTables, share: int = HIST_SHARE):
 # kernel it reads 0.0750-0.0757 ms (PERF.md section 6)
 
 
+# routed_fwd and routed_bwd_gather walk their CSR rows with a group of
+# lanes a row (FWD_LANES a ray, BWD_LANES a voxel), each lane taking
+# aligned quads of its row, FWD_QUADS / BWD_QUADS a step, in CTAs of
+# CSR_BLOCK threads.  The kernels fix these (csrc/routed_project.cu
+# kFwdLanes, ...); the names here mirror them for the tools and the tests'
+# emulation of the walk.  tools/fwd_sweep.py (B1) and tools/bwd_sweep.py
+# (B2) time other lanes and quads through the entry routed_csr_dot: on an
+# H100 (700 W) at the flagship (a live ray holds 68.6 crossings on average,
+# a live voxel 147.2) 8 lanes a ray read 0.0540 ms (2-4 lanes 0.0638-0.0904,
+# 16-32 0.0544-0.0842) and 16 a voxel 0.0555 (2-8 0.0626-0.1097, 32
+# 0.0573-0.0644).  A lane does best with about two quads of its row: at
+# vol100 (136.5 crossings a ray, 34.1 a voxel) 16 lanes a ray and 8 a voxel
+# read fastest (PERF.md section 6)
+FWD_LANES, FWD_QUADS = 8, 1
+BWD_LANES, BWD_QUADS = 16, 1
+CSR_BLOCK = 256
+
+
 def routed_fwd(t: RoutedTables, d):
     """y (R,) = A·d for a flat (V,) density; kernel ``routed_fwd``."""
     if t.row_ptr is None:
@@ -655,6 +679,7 @@ def routed_fwd(t: RoutedTables, d):
     if d.device.type == "cpu":
         return routed_fwd_ref(t, d)
     d = _check(d, t.n_vox, "density", t)
+    _aligned(t, "col", "val")
     y = torch.empty(t.n_rays, dtype=torch.float32, device=d.device)
     launch(entry, (t.row_ptr, t.col, t.val, d, y), (t.n_rays,))
     return y
@@ -669,9 +694,9 @@ def routed_bwd_gather(t: RoutedTables, dy):
     if dy.device.type == "cpu":
         return routed_bwd_gather_ref(t, dy)
     dy = _check(dy, t.n_rays, "dy", t)
+    _aligned(t, "ray", "valT")
     dD = torch.empty(t.n_vox, dtype=torch.float32, device=dy.device)
-    launch(entry, (t.vox_ptr, t.ray, t.valT, dy, dD),
-           (t.n_vox,))
+    launch(entry, (t.vox_ptr, t.ray, t.valT, dy, dD), (t.n_vox,))
     return dD
 
 

@@ -1,11 +1,13 @@
 """On-card sweep of the redesigned forwards' parameters at a real
 configuration: ``routed_fwd_window`` (B7a) over its piece size ``KF`` and
 CTA size, ``routed_fwd_dense`` (B5) over its atomic width and warp order,
-``routed_fwd_densew`` (B8) over its item size ``K`` and ``routed_fwd_hist``
-(B6) over its share size, on float32 and bfloat16 weights::
+``routed_fwd_densew`` (B8) over its item size ``K``, ``routed_fwd_hist``
+(B6) over its share size and ``routed_fwd`` (B1) over its lanes a ray and
+quads a lane a step (:data:`bwd_sweep.CSR_SETTINGS`), on float32 and
+bfloat16 weights::
 
     python -m sph_raytracer_tpu_torch.tools.fwd_sweep [config ...] \
-        [--kernels B7a B5 B8 B6]                   # flagship, all four
+        [--kernels B7a B5 B8 B6 B1]                # flagship, all five
 
 For each config it builds the trace once (:data:`wfwd_probe.CONFIGS`), the
 ray-major CSR and its transpose and the window chunk table from it, and one
@@ -23,7 +25,9 @@ shares and the most crossings and rays a share holds
 (:func:`routed_project.hist_cut`).  One record a config holds
 ``torch.mv`` on the CSR of A.  The module's defaults (``WIN_KF``,
 ``WIN_FWD_THREADS``, ``DENSE_WIDTH``, ``DENSE_SPREAD``, ``WIN_K``,
-``HIST_SHARE``) are among the settings.
+``HIST_SHARE``, ``FWD_LANES``, ``FWD_QUADS``) are among the settings; B1's
+records also hold the shipped kernel itself and are checked at rtol 1e-5
+(it sums in a fixed order).
 Exits 1 when a setting disagrees with its plain version.  Runs on the card
 only.
 """
@@ -38,7 +42,7 @@ from ..grid import SphericalGrid
 from ..operator import Operator
 from ..ops import routed_project as rp
 from ..ops._cuda import launch
-from .bwd_sweep import _close
+from .bwd_sweep import _close, csr_records
 from .wfwd_probe import (CONFIGS, HBM_BYTES_PER_S, SEED, _orbit, cuda_ms,
                          densew_atomics)
 
@@ -57,7 +61,7 @@ DENSE_SPREADS = (1, 64, 512)
 # routed_fwd_densew's item sizes K; routed_fwd_hist's share sizes
 DENSEW_K = (2048, 4096, 8192, 16384)
 HIST_SHARES = (1024, 2048, 4096)
-KERNELS = ("B7a", "B5", "B8", "B6")
+KERNELS = ("B7a", "B5", "B8", "B6", "B1")
 
 
 def window_fwd(t, d, threads):
@@ -149,6 +153,8 @@ def sweep(config="flagship", kernels=KERNELS):
     del op
     for w_dtype in (torch.float32, torch.bfloat16):
         tw = t._replace(val=t.val.to(w_dtype), valT=t.valT.to(w_dtype))
+        if "B1" in kernels:
+            records += csr_records(config, "routed_fwd", tw, d)
         for share in HIST_SHARES if "B6" in kernels else ():
             want = rp.routed_fwd_hist_ref(tw, d)
             table = rp.hist_cut(tw, share)

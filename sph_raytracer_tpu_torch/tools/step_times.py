@@ -1,5 +1,5 @@
 """On-card training-step times of the flagship's routed and fused configs,
-and the kernels of the 'both', 'off', 'hist' and window engines::
+and the kernels of the routed configs::
 
     python -m sph_raytracer_tpu_torch.tools.step_times
 
@@ -7,13 +7,13 @@ One ``Operator`` a config on the flagship (50³ grid, 50 views of 50×100
 pixels; ``wfwd_probe.CONFIGS['flagship']``); its step is ``bench.py``'s
 (forward → mean-square loss → gradient → update), timed with CUDA events
 over 30 steps after 5 warm-up ones.  Beside the steps, the forward and the
-backward kernel of the ``'both'``, ``'off'``, ``'hist'``
-(``routed_fwd_reduce='hist'``) and window configs (``routed_fwd_dense``
-(B5), ``routed_bwd_gather`` (B2), ``routed_fwd`` (B1),
-``routed_bwd_scatter`` (B3), ``routed_fwd_hist`` (B6),
-``routed_fwd_window`` (B7a), ``routed_bwd_window`` (B7b)) on their own
-tables, each the mean of 20 launches after 3 (B2 is timed on the
-``'hist'`` tables, its last config).  It reaches the package only
+backward kernel of the ``'auto'``, ``'off'``, ``'both'``, ``'hist'``
+(``routed_fwd_reduce='hist'``) and window configs (``routed_fwd`` (B1),
+``routed_bwd_gather`` (B2), ``routed_bwd_scatter`` (B3),
+``routed_fwd_dense`` (B5), ``routed_fwd_hist`` (B6), ``routed_fwd_window``
+(B7a), ``routed_bwd_window`` (B7b)), each on the tables of the first of
+those configs that runs it (B1 and B2 on ``'auto'``'s), the mean of 20
+launches after 3.  It reaches the package only
 through names that checkouts from the window-major probe on have too, so
 that one call can time two checkouts in turns: ``PYTHONPATH=<checkout>
 python <this file>``.  Prints one JSON object.  Runs on the card only.
@@ -62,12 +62,13 @@ def main():
 
         out["step_ms"][name] = cuda_ms(step, n=30, warm=5)
         t = op._tables
-        if name in ("both", "off", "hist", "window"):
+        if name in ("auto", "off", "both", "hist", "window"):
             d = torch.rand(t.n_vox, generator=gen).to(dev)
             dy = torch.randn(t.n_rays, generator=gen).to(dev)
             for kern, x in ((op._fwd, d), (op._bwd, dy)):
-                out["kernel_ms"][kern.__name__] = cuda_ms(
-                    lambda: kern(t, x))
+                if kern.__name__ not in out["kernel_ms"]:
+                    out["kernel_ms"][kern.__name__] = cuda_ms(
+                        lambda: kern(t, x))
         del op
     print(json.dumps(out), flush=True)
 

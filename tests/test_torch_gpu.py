@@ -14,7 +14,9 @@ several pieces at each CTA size, the dense forward at each atomic width and
 at ray counts that are not a multiple of 4, the window-major forward on a
 hot window cut into several work items, the merge-path forward on rays
 longer than a share, runs of empty rays and a last partial share at each
-share size, the scatter
+share size, the forward and the gather backward on rows of 0 to 2,000
+crossings at every start offset mod 4, run to run and adjoint with each
+partner, the scatter
 backward on tiles that overflow its shared table), each ``<name>_bf16``
 instantiation against its
 plain version on bf16 tables, and one training step of each routed
@@ -29,7 +31,7 @@ import sph_raytracer_tpu_torch as prt
 from sph_raytracer_tpu_torch.ops import fused_project as fp
 from sph_raytracer_tpu_torch.ops import routed_project as rp
 from sph_raytracer_tpu_torch.ops.trace import GridSpec
-from sph_raytracer_tpu_torch.tools import fwd_sweep
+from sph_raytracer_tpu_torch.tools import bwd_sweep, fwd_sweep
 
 pytestmark = pytest.mark.gpu
 
@@ -68,9 +70,10 @@ def test_kernels_match_plain_versions(cuda):
         torch.testing.assert_close(got, want, rtol=rtol,
                                    atol=1e-5 * float(want.abs().max()))
         assert rp.LAUNCHES[kern.__name__] == before[kern.__name__] + 1
-    # the gather backward is deterministic run to run
+    # the gather backward and the forward are deterministic run to run
     assert torch.equal(rp.routed_bwd_gather(t, dy),
                        rp.routed_bwd_gather(t, dy))
+    assert torch.equal(rp.routed_fwd(t, d), rp.routed_fwd(t, d))
 
 
 def _synthetic(seed, R, V, M, vox=None, empty=0.1, long_ray=0):
@@ -322,6 +325,68 @@ def test_hist_shares_cut_rays(cuda, R):
         assert not bool(got[empty].any())
         assert _adjoint_rel(rp.routed_fwd_hist, rp.routed_bwd_gather, t, gen,
                             cuda) <= 1e-5
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residue", [1, 2, 3])
+def test_csr_walks(cuda, residue, w_dtype):
+    """routed_fwd (B1) and routed_bwd_gather (B2), f32 and bf16, on rows
+    of every length of interest (``bwd_sweep.csr_case``) at ray and voxel
+    counts ≡
+    1, 2, 3 (mod 32, so mod the rows any warp or CTA holds): against
+    their plain versions at rtol 1e-5, bitwise equal over two launches (a
+    fixed summation order), and exactly adjoint (rel ≤ 1e-8 on x, y ≥ 0:
+    80,000 rows, so the f32 rounding of the 2,000-crossing rows stays
+    ~1e-9 of the whole) with B2 and B3 (B1) and with B5 and B6 (B2) on the
+    same rounded lengths."""
+    R = V = 80000 + residue
+    lin, lens = bwd_sweep.csr_case(residue, R, V, cuda)
+    t = rp.build_tables(lin, lens, V, w_dtype=w_dtype)
+    del lin, lens
+    assert int(torch.diff(t.row_ptr).max()) == 2000
+    assert int(torch.diff(t.vox_ptr).max()) >= 2000
+    gen = torch.Generator().manual_seed(residue)
+    x = torch.rand(V, generator=gen).to(cuda)
+    y = torch.rand(R, generator=gen).to(cuda)
+    for kern, inp in ((rp.routed_fwd, x), (rp.routed_bwd_gather, y)):
+        entry = rp._entry(kern.__name__, t.val)
+        before = rp.LAUNCHES[entry]
+        got = kern(t, inp)
+        want = getattr(rp, f"{kern.__name__}_ref")(t, inp)
+        torch.cuda.synchronize()
+        assert rp.LAUNCHES[entry] == before + 1
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+        assert torch.equal(got, kern(t, inp))
+    ax = float(torch.dot(rp.routed_fwd(t, x).double(), y.double()))
+    for bwd in (rp.routed_bwd_gather, rp.routed_bwd_scatter):
+        aty = float(torch.dot(x.double(), bwd(t, y).double()))
+        assert abs(ax - aty) <= 1e-8 * abs(ax), bwd.__name__
+    aty = float(torch.dot(x.double(), rp.routed_bwd_gather(t, y).double()))
+    for fwd in (rp.routed_fwd_dense, rp.routed_fwd_hist):
+        ax = float(torch.dot(fwd(t, x).double(), y.double()))
+        assert abs(ax - aty) <= 1e-8 * abs(ax), fwd.__name__
+
+
+def test_csr_walks_refuse_unaligned_tables(cuda):
+    """B1 and B2 read their index and weight tables in aligned quads: a
+    table that does not start on 16 B raises, before any launch."""
+    t = rp.build_tables(*bwd_sweep.csr_case(4, 300, 50, cuda), 50)
+    x, y = torch.rand(50, device=cuda), torch.rand(300, device=cuda)
+
+    def shifted(a):  # the same values 4 B past a 16 B boundary
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=cuda)
+        buf[1:] = a
+        return buf[1:]
+
+    before = dict(rp.LAUNCHES)
+    for kern, inp, names in ((rp.routed_fwd, x, ("col", "val")),
+                             (rp.routed_bwd_gather, y, ("ray", "valT"))):
+        for name in names:
+            bad = t._replace(**{name: shifted(getattr(t, name))})
+            with pytest.raises(ValueError, match="16-byte"):
+                kern(bad, inp)
+    assert dict(rp.LAUNCHES) == before
 
 
 def test_scatter_table_overflow(cuda):
