@@ -10,7 +10,7 @@ Phases (any failure raises and exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``sph_raytracer_tpu_torch/csrc`` (nvcc),
-   with ``-Xptxas -v`` register / spill lines;
+   with each source's seconds and ``-Xptxas -v`` register / spill lines;
 3. the flagship operator: 50³ ``SphericalGrid``, a 50-view orbit of
    ``ConeRectGeom((50, 100))`` detectors (250,000 rays), ``mode='auto'``
    on CUDA (= routed), float32 — the configuration of ``bench.py``;
@@ -36,8 +36,8 @@ Phases (any failure raises and exits non-zero):
 8. fused mode on the flagship, forward only: ``Operator(mode='fused')``
    builds no tables; the ``fused_fwd`` kernel against its plain version
    and against the routed kernel's image of the same rays, rays outside
-   the tolerance counted (knife-edge midpoint ties), its peak memory
-   beside the routed tables' bytes;
+   the tolerance counted (knife-edge midpoint ties), bitwise equal over
+   two launches, its peak memory beside the routed tables' bytes;
 9. fused mode's main path: ``retrieval.gd`` for 20 iterations through
    ``fused_fwd`` + ``routed_bwd_gather`` on lazily built backward-only
    tables, counters reset just before and read just after; then 5
@@ -45,10 +45,16 @@ Phases (any failure raises and exits non-zero):
 10. the dynamic ``view_times`` configuration of
    ``examples/dynamic_measurements.py`` at full size (20 time bins of
    50³, 40 ``ConeCircGeom((100, 50))`` views, 200,000 rays): the lerp
-   kernel against its plain version and one gradient through the lazy
-   backward on the doubled tables;
-11. fused timings: ``fused_fwd`` beside its plain version and its bound
-   (operations), the fused training step;
+   kernel against its plain version, bitwise equal over two launches, and
+   one gradient through the lazy backward on the doubled tables;
+11. fused timings: the fused training step first, then per config
+   (flagship, ``view_times``) ``fused_fwd`` beside its plain version and
+   its bound (operations: the shipped design's own count on this run's
+   rays, ``tools.fused_sweep.shipped_ops``; the first port's full Mp-wide
+   network, the TPU kernel's work, printed beside it), its rays by sort
+   size S = 32 … 512 and the dense walk's mean steps; the shipped
+   kernel's stage split at the flagship (``tools.fused_sweep``:
+   crossings, sort, labels, the gather);
 12. the routed engine's variants on the flagship, one ``Operator`` each
    (its setup seconds and table bytes printed): ``routed_dense='both'``
    (``routed_fwd_dense`` + ``routed_bwd_gather`` on the transpose alone),
@@ -96,8 +102,8 @@ Phases (any failure raises and exits non-zero):
 
 Before the last line: the card's name and power limit, then the
 ``{"kernels": [...]}`` line (15 kernels: 9 f32, 6 bf16); the last line is
-``{"ok": true, "device": {...}}``.  The run's wall seconds are printed
-before them.  Imports nothing of JAX.
+``{"ok": true, "device": {...}}``.  The run's wall seconds, and its
+seconds by phase, are printed before them.  Imports nothing of JAX.
 """
 import json
 import os
@@ -164,25 +170,13 @@ def check_rays(name, got, want, rtol, atol, allow_frac):
     return err
 
 
-def fused_live(torch, fp, gs, rays, block=8192):
-    """Live segments (finite, > 0, t >= 0) over all rays: the segments
-    whose voxel ``fused_fwd`` searches for, counted on this run's rays."""
-    tab = fp.boundary_table(gs, rays.xs.device)
-    n = 0
-    for i in range(0, rays.n, block):
-        ts = torch.sort(fp._crossings(gs, tab, rays.xs[i:i + block],
-                                      rays.dirs[i:i + block]), dim=1).values
-        n += int(fp._segments(ts)[1].sum())
-    return n
-
-
 def fused_ops(gs, n_rays, mp, live, lerp):
-    """f32 operations (arithmetic, compares, min/max) of ``fused_fwd``,
-    counted from csrc/fused_project.cu: the per-ray prologue (30), a
-    sphere row (4), a cone row (38), an azimuth row (25), the bitonic
-    network (Mp·L(L+1)/4 compare-exchanges of 2 ops, L = log2 Mp), 5 per
-    sorted element (length, live test), the warp reduce (5 adds on 32
-    lanes); per live segment the midpoint and |p| (14), the three 7-step
+    """f32 operations (arithmetic, compares, min/max) of ``fused_fwd`` as
+    first ported (one lane a row, the full Mp-wide sort): the per-ray
+    prologue (30), a sphere row (4), a cone row (38), an azimuth row (25),
+    the bitonic network (Mp·L(L+1)/4 compare-exchanges of 2 ops,
+    L = log2 Mp), 5 per sorted element (length, live test), the warp
+    reduce (5 adds on 32 lanes); per live segment the midpoint and |p| (14), the three 7-step
     searches (7 + 14 + 35) and the gather-multiply-add (2, lerp 7)."""
     L = mp.bit_length() - 1
     per_ray = (30 + 4 * 2 * (gs.nr + 1) + 38 * 2 * (gs.ne + 1)
@@ -277,6 +271,10 @@ def main(argv):
                     "and of fused mode; write the traces to DIR")
     profile_dir = ap.parse_args(argv).profile
     t_start = time.time()
+    marks = [("imports", t_start)]  # (phase, time it started)
+
+    def mark(phase):
+        marks.append((phase, time.time()))
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -287,7 +285,7 @@ def main(argv):
     from sph_raytracer_tpu_torch.ops import routed_project as rp
     from sph_raytracer_tpu_torch.ops.project import precompute_table
     from sph_raytracer_tpu_torch.ops.trace import GridSpec
-    from sph_raytracer_tpu_torch.tools import wfwd_probe
+    from sph_raytracer_tpu_torch.tools import fused_sweep, wfwd_probe
     from sph_raytracer_tpu_torch.tools.bwd_sweep import csr_case
     from sph_raytracer_tpu_torch.tools.wfwd_probe import (HBM_BYTES_PER_S,
                                                           cuda_ms)
@@ -298,6 +296,7 @@ def main(argv):
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
 
+    mark(1)
     # 1. the card --------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -307,15 +306,17 @@ def main(argv):
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {kind}")
 
+    mark(2)
     # 2. build -------------------------------------------------------------
     t0 = time.time()
     _, build_log = rp.load_library()
     log(f"[build] {time.time() - t0:.2f} s")
     for line in build_log.splitlines():
         if ("registers" in line or "spill" in line
-                or "Compiling entry" in line):
+                or "Compiling entry" in line or line.endswith(" s")):
             log(f"[build] {line.strip()}")
 
+    mark(3)
     # 3. the flagship operator ---------------------------------------------
     grid = prt.SphericalGrid(shape=(50, 50, 50))
     geom = orbit(prt, 50, (50, 100))
@@ -330,6 +331,7 @@ def main(argv):
     log(f"[flagship] setup {setup_s:.3f} s, R={R}, V={V}, nnz={nnz}, "
         f"table bytes={tab.nbytes}")
 
+    mark(4)
     # 4. kernels vs plain versions at the flagship's shapes -----------------
     gen = torch.Generator(device="cpu").manual_seed(0)
     d = torch.rand(V, generator=gen).to(dev)
@@ -378,6 +380,7 @@ def main(argv):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    mark(5)
     # 5. goldens on the card -------------------------------------------------
     g = np.load(os.path.join(HERE, "tests", "goldens",
                              "collection_orbit.npz"))
@@ -410,6 +413,7 @@ def main(argv):
         g["density"]).cpu(), ref, 1e-4, 1e-4 * float(ref.abs().max()))
     torch.cuda.synchronize()
 
+    mark(6)
     # 6. the main path: gd on the flagship ----------------------------------
     truth = torch.rand(tuple(grid.shape), generator=gen).to(dev)
     with torch.no_grad():
@@ -453,6 +457,7 @@ def main(argv):
                              f"{off_launches}")
     del op_off
 
+    mark(7)
     # 7. timings -------------------------------------------------------------
     def make_step(o, target):
         """One training step of operator ``o`` (forward → MSE → grad →
@@ -514,6 +519,7 @@ def main(argv):
             f"library {lib_ms:.4f} ms, bound {max(byte_ms, op_ms):.4f} ms "
             f"({bytes_[name]} bytes), {byte_ms / ms:.1%} of the bound")
 
+    mark(8)
     # 8. fused mode on the flagship, forward only ---------------------------
     torch.cuda.synchronize()
     t0 = time.time()
@@ -536,6 +542,9 @@ def main(argv):
     # atan2 labels) at tests/test_fused_pallas.py's tolerances
     check_rays("fused_fwd vs routed_fwd image", y_fk, rp.routed_fwd(tab, d),
                1e-4, 2e-5, KNIFE_ROUTED)
+    if not torch.equal(y_fk, fp.fused_fwd(fgs, frays, d)):
+        raise AssertionError("fused_fwd differs run to run")
+    log("[check] fused_fwd: two launches bitwise equal")
     with torch.no_grad():
         y_op = opf(d.reshape(tuple(grid.shape)))
     if opf._fused_btd is not None or not torch.equal(
@@ -552,6 +561,7 @@ def main(argv):
         f"{torch.cuda.max_memory_allocated() - base} B, per-ray inputs "
         f"{ray_bytes} B; routed tables {tab.nbytes} B")
 
+    mark(9)
     # 9. fused mode's main path: gd through fused_fwd + the lazy backward ---
     with torch.no_grad():
         yf = opf(truth)
@@ -600,6 +610,7 @@ def main(argv):
                              f"{foff_launches}")
     del opf_off
 
+    mark(10)
     # 10. the dynamic view_times configuration at full size -----------------
     # examples/dynamic_measurements.py:23-28,75-83
     dgrid = prt.SphericalGrid(shape=(20, 50, 50, 50))
@@ -620,10 +631,13 @@ def main(argv):
     dd = torch.rand(opd._flat_size, generator=gen).to(dev)
     ddy = torch.randn(drays.n, generator=gen).to(dev)
     y_dk = fp.fused_fwd(opd.gs, drays, dd)
-    errs_lerp = check_rays(
+    check_rays(
         "fused_fwd lerp vs its plain version", y_dk,
         fp.fused_fwd_ref(opd.gs, drays, dd), 1e-5,
         1e-5 * float(y_dk.abs().max()), KNIFE_KERNEL)
+    if not torch.equal(y_dk, fp.fused_fwd(opd.gs, drays, dd)):
+        raise AssertionError("fused_fwd lerp differs run to run")
+    log("[check] fused_fwd lerp: two launches bitwise equal")
     v = dd.reshape(tuple(dgrid.shape)).clone().requires_grad_(True)
     rp.reset_launches()
     torch.sum(opd(v).reshape(-1) * ddy).backward()
@@ -653,31 +667,53 @@ def main(argv):
         if not rel <= 1e-4:
             raise AssertionError(f"fused adjoint identity fails ({name})")
 
+    mark(11)
     # 11. fused timings -------------------------------------------------------
-    live = fused_live(torch, fp, fgs, frays)
-    f_ms = cuda_ms(lambda: fp.fused_fwd(fgs, frays, d))
-    f_plain = cuda_ms(lambda: fp.fused_fwd_ref(fgs, frays, d), n=5,
-                      warm=1)
-    f_ops = fused_ops(fgs, frays.n, mp, live, lerp=False)
-    f_bytes = fused_bytes(frays.n, V, off0=False, lerp=False)
-    f_op_ms, f_byte_ms = f_ops / F32_FLOPS * 1e3, f_bytes / HBM_BYTES_PER_S * 1e3
-    dlive = fused_live(torch, fp, opd.gs, drays)
-    d_ms = cuda_ms(lambda: fp.fused_fwd(opd.gs, drays, dd))
-    d_plain = cuda_ms(lambda: fp.fused_fwd_ref(opd.gs, drays, dd),
-                      n=5, warm=1)
-    d_op_ms = fused_ops(opd.gs, drays.n, fp.padded_crossings(opd.gs), dlive,
-                        lerp=True) / F32_FLOPS * 1e3
-    d_byte_ms = fused_bytes(drays.n, opd._flat_size, True, True) \
-        / HBM_BYTES_PER_S * 1e3
-    log(f"[kernel] fused_fwd: {f_ms:.4f} ms, plain {f_plain:.4f} ms, bound "
-        f"{max(f_op_ms, f_byte_ms):.4f} ms ({f_ops} f32 ops, {live} live "
-        f"segments, bytes bound {f_byte_ms:.4f} ms), "
-        f"{max(f_op_ms, f_byte_ms) / f_ms:.1%} of the bound; routed_fwd on "
-        f"the same rays {kernels[0]['ms']:.4f} ms")
-    log(f"[kernel] fused_fwd lerp (view_times, {drays.n} rays): {d_ms:.4f} "
-        f"ms, plain {d_plain:.4f} ms, bound {max(d_op_ms, d_byte_ms):.4f} ms "
-        f"({dlive} live segments, bytes bound {d_byte_ms:.4f} ms), max abs "
-        f"err {errs_lerp:.3e}")
+    # the step first, so that no work of this phase runs before it
+    fone = make_step(opf, yf)
+    fstep_ms = cuda_ms(fone, n=30, warm=5)
+    log(f"[fused step] {fstep_ms:.4f} ms/step, "
+        f"{R / (fstep_ms * 1e-3):.6g} rays/s (fused_fwd + "
+        f"routed_bwd_gather, {R} rays)")
+    fcfg = {"flagship": (fgs, frays, d, V, False),
+            "view_times": (opd.gs, drays, dd, opd._flat_size, True)}
+    ftimes = {}
+    for name, (gs_, rays_, dens, n_flat, lerp_) in fcfg.items():
+        st = fused_sweep.ray_stats(gs_, rays_)
+        ms = cuda_ms(lambda: fp.fused_fwd(gs_, rays_, dens))
+        plain = cuda_ms(lambda: fp.fused_fwd_ref(gs_, rays_, dens), n=5,
+                        warm=1)
+        # the bound: the shipped design's own operations on this run's
+        # rays; the first port's Mp-wide network (the TPU kernel's work)
+        # printed beside it
+        ops = fused_sweep.shipped_ops(gs_, st, lerp_)
+        net = fused_ops(gs_, rays_.n, fp.padded_crossings(gs_), st["live"],
+                        lerp_)
+        op_ms = ops / F32_FLOPS * 1e3
+        byte_ms = fused_bytes(rays_.n, n_flat, off0=lerp_, lerp=lerp_) \
+            / HBM_BYTES_PER_S * 1e3
+        ftimes[name] = (ms, plain, op_ms, byte_ms)
+        log(f"[kernel] fused_fwd {name} ({rays_.n} rays): {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, bound {max(op_ms, byte_ms):.4f} ms "
+            f"({ops} f32 ops of the shipped design; the first port's "
+            f"network "
+            f"{net}, {net / F32_FLOPS * 1e3:.4f} ms; {st['live']} live "
+            f"segments; bytes bound {byte_ms:.4f} ms), "
+            f"{max(op_ms, byte_ms) / ms:.1%} of the bound"
+            + (f"; routed_fwd on the same rays {kernels[0]['ms']:.4f} ms"
+               if not lerp_ else ""))
+        log(f"[fused {name}] rays by sort size S {st['sort_size_rays']}, "
+            f"finite crossings mean {st['finite_mean']:.2f} (max "
+            f"{st['finite_max']}), dense walk steps mean "
+            f"{st['walk_steps_mean']:.3f} ({st['live_slices_mean']:.3f} "
+            f"32-wide slices hold a live segment)")
+    # the shipped kernel's stage split at the flagship (tools/fused_sweep.py
+    # splits both designs on both configs)
+    _, alone = fused_sweep.stage_split(fgs, frays, d, "shipped", n=5)
+    log("[fused flagship] shipped stage split (ms, each stage alone, 5 "
+        "launches each): " + ", ".join(f"{k} {v:.4f}"
+                                         for k, v in alone.items()))
+    f_ms, f_plain, f_op_ms, f_byte_ms = ftimes["flagship"]
     kernels.append({
         "name": "fused_fwd", "route": "cuda", "source": FUSED_SOURCE,
         "replaces": REPLACES["fused_fwd"],
@@ -687,15 +723,10 @@ def main(argv):
         "bound_by": "operations" if f_op_ms >= f_byte_ms else "bytes",
         "library_ms": None})
 
-    fone = make_step(opf, yf)
-    fstep_ms = cuda_ms(fone, n=30, warm=5)
-    log(f"[fused step] {fstep_ms:.4f} ms/step, "
-        f"{R / (fstep_ms * 1e-3):.6g} rays/s (fused_fwd + "
-        f"routed_bwd_gather, {R} rays)")
-
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
+    mark(12)
     # 12. the routed engine's variants on the flagship ----------------------
     variants = {  # name -> (TraceConfig fields, forward, backward)
         "both": (dict(routed_dense="both"), rp.routed_fwd_dense,
@@ -817,6 +848,7 @@ def main(argv):
                 or lv["routed_fwd"] != 0):
             raise AssertionError(f"{name} main path missed a kernel: {lv}")
 
+    mark(13)
     # 13. variant timings ----------------------------------------------------
     vsteps = {}
     for name, vop in vops.items():
@@ -865,6 +897,7 @@ def main(argv):
             f"({var_bytes[name]} bytes), {byte_ms / ms:.1%} of the "
             f"bound{extra}")
 
+    mark(14)
     # 14. the window-major forward (B8) on phase 12's chunk table, then the
     # path that runs it: the probe at vol100 ------------------------------
     name = "routed_fwd_densew"
@@ -931,6 +964,7 @@ def main(argv):
         f"({dw_bytes} bytes), {byte_ms / ms:.1%} of the bound, {atomics} "
         f"global atomics")
 
+    mark(15)
     # 15. routed_w_dtype='bf16' on the flagship -----------------------------
     # each banded pair and fused mode's backward on bf16 tables, beside the
     # same config in f32 built here
@@ -1091,6 +1125,7 @@ def main(argv):
                 1e-6 * float(py["routed_fwd"].abs().max()))
     del probe16, pw, pd, py
 
+    mark(16)
     # 16. bf16 timings: each instantiation beside its f32 kernel on the
     # f32 tables of the same config, its plain version, its bound and
     # torch.mv on the CSR of the widened weights (the same function: torch
@@ -1155,6 +1190,7 @@ def main(argv):
             f"{byte_ms / ms:.1%} of the bound")
 
     if profile_dir:
+        mark("profile")
         from torch.profiler import ProfilerActivity, profile
 
         os.makedirs(profile_dir, exist_ok=True)
@@ -1171,7 +1207,10 @@ def main(argv):
             prof.export_chrome_trace(os.path.join(profile_dir,
                                                   f"{label}_trace.json"))
 
-    log(f"[run] wall {time.time() - t_start:.1f} s")
+    marks.append(("end", time.time()))
+    log(f"[run] wall {time.time() - t_start:.1f} s; seconds by phase: "
+        + ", ".join(f"{p} {t1 - t0:.1f}"
+                    for (p, t0), (_, t1) in zip(marks, marks[1:])))
     log(f"[card] {smi}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -32,9 +33,14 @@ __all__ = ["SOURCES", "HEADERS", "LAUNCHES", "BF16_ENTRIES",
            "reset_launches", "load_library", "launch"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the fused kernel's instantiations compile over four sources, in parallel:
+# fused_fwd's (fused_project*.cu) and the sweep's (fused_sweep*.cu,
+# tools/fused_sweep.py)
 SOURCES = tuple(os.path.join(_PKG, "csrc", f) for f in (
-    "routed_project.cu", "routed_variants.cu", "fused_project.cu"))
-HEADERS = (os.path.join(_PKG, "csrc", "weight.cuh"),)
+    "routed_project.cu", "routed_variants.cu", "fused_project.cu",
+    "fused_project_lerp.cu", "fused_sweep.cu", "fused_sweep_parent.cu"))
+HEADERS = tuple(os.path.join(_PKG, "csrc", f) for f in (
+    "weight.cuh", "fused_kernel.cuh"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 # -fmad=false: no a*b+c is contracted into an FMA, so every float op rounds
 # as the plain PyTorch versions' separate ops do (the routed kernels call
@@ -53,7 +59,9 @@ _ENTRIES = {
     "routed_fwd_window": [_P] * 9 + [_I] * 7 + [_P],
     "routed_bwd_window": [_P] * 10 + [_I] * 5 + [_P],
     "routed_fwd_densew": [_P] * 9 + [_I] * 6 + [_P],
-    "fused_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fused_fwd": [_P] * 8 + [_I] * 5 + [_P],
+    # fused_fwd's two designs and stage truncations (tools/fused_sweep.py)
+    "fused_fwd_sweep": [_P] * 8 + [_I] * 7 + [_P],
     # routed_fwd's and routed_bwd_gather's walk at other settings (the
     # sweeps' entry)
     "routed_csr_dot": [_P] * 5 + [_I] * 3 + [_P],
@@ -90,8 +98,9 @@ def _nvcc() -> str:
 def load_library():
     """Build (once per source hash) and load the kernels' shared library.
 
-    Returns ``(lib, build_log)``; ``build_log`` holds nvcc's output
-    (``-Xptxas -v`` register and spill lines) when this call built it.
+    Returns ``(lib, build_log)``; ``build_log`` holds each nvcc call's
+    seconds and output (``-Xptxas -v`` register and spill lines) when this
+    call built it.
     Raises with the compiler's output when the build fails."""
     h = hashlib.sha256()
     for src in SOURCES + HEADERS:
@@ -106,18 +115,23 @@ def load_library():
         objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
         nvcc = _nvcc()
 
-        def run(cmd):
-            return subprocess.run(cmd, capture_output=True, text=True)
+        def run(cmd, what):
+            t0 = time.time()
+            p = subprocess.run(cmd, capture_output=True, text=True)
+            p.stdout = f"{what}: {time.time() - t0:.1f} s\n{p.stdout}"
+            return p
 
         try:
             # the sources compile in parallel (each is self-contained),
             # then one link
             with ThreadPoolExecutor(len(SOURCES)) as pool:
-                procs = list(pool.map(run, (
-                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
-                    for src, obj in zip(SOURCES, objs))))
+                procs = list(pool.map(
+                    run, ([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                          for src, obj in zip(SOURCES, objs)),
+                    (os.path.basename(src) for src in SOURCES)))
             if all(p.returncode == 0 for p in procs):
-                procs.append(run([nvcc, "-shared", "-o", tmp, *objs]))
+                procs.append(run([nvcc, "-shared", "-o", tmp, *objs],
+                                 "link"))
             log = "".join(p.stdout + p.stderr for p in procs)
             if any(p.returncode != 0 for p in procs):
                 raise RuntimeError(f"nvcc failed:\n{log}")

@@ -7,11 +7,15 @@ Per ray, the kernel ``fused_fwd`` (``csrc/fused_project.cu``):
 
   1. computes all M boundary-crossing distances with the branchless
      intersection math of ``fused_pallas.py:156-225`` (sphere / cone /
-     plane families, the snaps and the shadows), NaN -> +inf;
-  2. sorts them (a warp bitonic network in registers);
+     plane families, the snaps and the shadows), NaN -> +inf, a boundary
+     a lane (both roots of a sphere or cone from one computation), and
+     stages the finite ones in shared memory;
+  2. sorts the S = pow2(count) first of them (a warp bitonic network in
+     registers, S/32 a lane);
   3. takes segment lengths as adjacent differences and labels each live
      segment by the voxel of its midpoint through binary searches over the
-     boundary tables (the azimuth by half-plane sign tests, no atan2);
+     boundary tables (the azimuth by half-plane sign tests, no atan2), the
+     segments from the first t >= 0 on, one a lane;
   4. sums ``density[code] · len``; with ``view_times`` (lerp) each segment
      also reads a second time bin, ``(1-w)·len`` at ``off0`` and ``w·len``
      at ``off1``.
@@ -27,7 +31,8 @@ here, the backward a routed kernel on backward-only tables).
 
 Scope (:func:`supported`): float32, ≤127 boundaries per axis, azimuth
 boundaries within [-π, π] (the half-plane tests assume it), padded M ≤ 512
-(the kernel holds Mp/32 distances per lane in registers: 16 at the cap),
+(the kernel sorts up to Mp/32 distances per lane in registers: 16 at the
+cap, and stages Mp floats a warp in shared memory),
 fewer than 2**30 linear voxels (int32 codes).  The JAX module's VMEM clause
 has no counterpart: the density is gathered from global memory.
 

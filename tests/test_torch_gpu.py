@@ -7,7 +7,9 @@ skips tests/conftest.py, which imports jax)::
 
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors (the fused kernel at every padded crossing count it is built for,
-and with the lerp; the routed variants on synthetic tables with empty
+on rays whose finite crossing count is one off or at each of its sort
+sizes, a ray that misses the grid and one through the cones' apex, run
+to run, and with the lerp; the routed variants on synthetic tables with empty
 rays, empty windows and a last tile of one ray; the window backward on a
 window cut into several work items, the window forward on tiles cut into
 several pieces at each CTA size, the dense forward at each atomic width and
@@ -31,7 +33,7 @@ import sph_raytracer_tpu_torch as prt
 from sph_raytracer_tpu_torch.ops import fused_project as fp
 from sph_raytracer_tpu_torch.ops import routed_project as rp
 from sph_raytracer_tpu_torch.ops.trace import GridSpec
-from sph_raytracer_tpu_torch.tools import bwd_sweep, fwd_sweep
+from sph_raytracer_tpu_torch.tools import bwd_sweep, fused_sweep, fwd_sweep
 
 pytestmark = pytest.mark.gpu
 
@@ -466,8 +468,18 @@ def _fused_check(got, want):
                                atol=1e-5 * float(want.abs().max()))
 
 
-# one grid per padded crossing count Mp = 32, 64, 128, 256, 512 (the
-# kernel's template K = Mp / 32 distances per lane)
+# one grid per padded crossing count Mp = 16 (one warp's 32 slots), 64,
+# 128, 256, 512 (the kernel's template K = Mp / 32 distances per lane) on
+# an orbit; on the 50³ and (100, 60, 60) grids also rays whose finite
+# crossing count is 2^j - 1, 2^j and 2^j + 1 (the compacted sort's sizes
+# S = 32 ... 256, and 512 on the Mp = 512 grid), a ray that misses the
+# outer sphere (finite cone and plane crossings, no segment inside: y = 0)
+# and one that passes 1e-6 from the cones' apex (tools/fused_sweep.
+# edge_rays)
+EDGE_COUNTS = {(50, 50, 50): [31, 32, 33, 63, 64, 65, 127, 128, 129],
+               (100, 60, 60): [255, 256, 257]}
+
+
 @pytest.mark.parametrize("shape", [(2, 2, 2), (8, 8, 8), (20, 20, 20),
                                    (50, 50, 50), (100, 60, 60)])
 def test_fused_kernel_matches_plain_version(cuda, shape):
@@ -479,12 +491,21 @@ def test_fused_kernel_matches_plain_version(cuda, shape):
     gs = GridSpec.from_grid(grid)
     assert fp.supported(gs, int(np.prod(shape)))
     rays = fp.prep_rays(geom.ray_starts, geom.rays, device=cuda)
+    if shape in EDGE_COUNTS:
+        edge = fused_sweep.edge_rays(gs, EDGE_COUNTS[shape], device=cuda)
+        rays = fp.FusedRays(torch.cat([rays.xs, edge.xs]),
+                            torch.cat([rays.dirs, edge.dirs]), None, None,
+                            None)
     d = torch.rand(int(np.prod(shape)),
                    generator=torch.Generator().manual_seed(2)).to(cuda)
     before = rp.LAUNCHES["fused_fwd"]
     got = fp.fused_fwd(gs, rays, d)
     assert rp.LAUNCHES["fused_fwd"] == before + 1
     _fused_check(got, fp.fused_fwd_ref(gs, rays, d))
+    # one accumulator a lane and a fixed shuffle tree
+    assert torch.equal(got, fp.fused_fwd(gs, rays, d))
+    if shape in EDGE_COUNTS:
+        assert float(got[-2]) == 0.0  # the ray that misses the grid
 
 
 def test_fused_kernel_lerp(cuda):
@@ -498,8 +519,9 @@ def test_fused_kernel_lerp(cuda):
     assert op._frays.w is not None
     d = torch.rand(op._flat_size,
                    generator=torch.Generator().manual_seed(3)).to(cuda)
-    _fused_check(fp.fused_fwd(op.gs, op._frays, d),
-                 fp.fused_fwd_ref(op.gs, op._frays, d))
+    got = fp.fused_fwd(op.gs, op._frays, d)
+    _fused_check(got, fp.fused_fwd_ref(op.gs, op._frays, d))
+    assert torch.equal(got, fp.fused_fwd(op.gs, op._frays, d))
 
 
 @pytest.mark.parametrize("w_dtype", ["f32", "bf16"])
