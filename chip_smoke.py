@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py                  # needs one CUDA card
     python3 chip_smoke.py --profile DIR    # adds torch.profiler windows over
-                                           # the routed and the fused step;
-                                           # their traces go to DIR
+                                           # the routed and the fused step
+                                           # and the solver runs; their
+                                           # traces go to DIR
 
 Phases (any failure raises and exits non-zero):
 
@@ -98,7 +99,26 @@ Phases (any failure raises and exits non-zero):
 16. bf16 timings: each bf16 kernel beside its f32 kernel (same config, in
    turns), its plain version, its bound and ``torch.mv`` on the CSR of
    the widened weights (the same function; torch has no sparse mv of
-   bf16 weights by an f32 vector).
+   bf16 weights by an f32 vector);
+17. the solver path on the flagship (``solver_checks``), on a smooth
+   seeded phantom, counters reset just before and read just after each
+   run and held to the formula the code gives: ``sart_preconditioner`` +
+   30 iterations of ``solve.cg`` (B1 1 + 1 + 30 + 1, B2 1 + 2 + 30; the
+   residual and the reprojection's misfit); 10 iterations of ``cg`` at
+   ``'auto'`` against ``mode='precomputed'`` on the card (the plain
+   table path, no kernel launched), x and each residual norm within 1e-3
+   relative; ``solve.mlem`` on seeded Poisson counts, 20 sweeps (NLL
+   non-increasing, x >= 0, its sensitivity ``op.T(ones)``, against
+   ``'precomputed'`` at 1e-3) and OS-EM at 5 subsets for 4 sweeps (each
+   sub-operator's setup seconds and table bytes, the summed sensitivity
+   against ``op.T(ones)`` at rtol 1e-4); ``retrieval.gd`` with
+   ``SphHarmModel(lmax=4)`` (coefficients (25, 50)) and with dict
+   coefficients, ``cg`` in SphHarm coefficient space; ``cg`` through
+   fused mode (B4 + B2) and ``routed_dense='off'`` (B1 + B3); then one
+   ``cg`` iteration, one ``mlem`` sweep and one SphHarm ``gd`` step timed
+   (CUDA events, the difference of two run lengths) beside phase 7's
+   training step and the card's name and power limit: reported, not
+   claimed.
 
 Before the last line: the card's name and power limit, then the
 ``{"kernels": [...]}`` line (15 kernels: 9 f32, 6 bf16); the last line is
@@ -260,6 +280,251 @@ def orbit(prt, views, det, z=0.3):
                for t in np.linspace(0, 2 * np.pi, views, endpoint=False))
 
 
+def smooth_phantom(grid, seed):
+    """A smooth positive volume made from a seed: 0.05 plus four Gaussian
+    blobs (seeded centers inside the grid, widths 0.15-0.35 of its outer
+    radius) at the voxel centers."""
+    rng = np.random.default_rng(seed)
+    r, e, a = np.meshgrid(grid.r, grid.e, grid.a, indexing="ij")
+    xyz = np.stack([r * np.sin(e) * np.cos(a), r * np.sin(e) * np.sin(a),
+                    r * np.cos(e)], -1)
+    rmax = float(grid.r_b[-1])
+    vol = np.full(r.shape, 0.05)
+    for _ in range(4):
+        c = rng.uniform(-0.5, 0.5, 3) * rmax
+        w = rng.uniform(0.15, 0.35) * rmax
+        vol += np.exp(-((xyz - c) ** 2).sum(-1) / (2 * w * w))
+    return vol
+
+
+def solver_checks(torch, prt, rp, op, opf, dev, timer, step, label):
+    """The solver path (``solve.cg``, ``sart_preconditioner``, ``mlem`` /
+    OS-EM, ``SphHarmModel``) on ``op`` ('auto': B1 + B2) and ``opf``
+    (fused: B4 + B2): each run's launches held to the formula the code
+    gives (counters set to 0 just before, read just after), ``'auto'``
+    against ``mode='precomputed'`` (plain PyTorch) on the same device at
+    ≤ 1e-3 relative, then the timings, printed beside ``label`` (the
+    card's name and power limit) and ``step`` (phase 7's training step).
+    Reported, not claimed.  ``timer(fn)`` gives a call's milliseconds.
+    Returns the solver runs that ``--profile`` traces, by name."""
+    from sph_raytracer_tpu_torch import solve
+    from sph_raytracer_tpu_torch.models import SphHarmModel
+
+    grid, geom = op.grid, op.geom
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def launches(name, fn, want):
+        """Run ``fn`` with the counters set to 0 just before and read just
+        after; every kernel in ``want`` launched that often, no other."""
+        sync()
+        rp.reset_launches()
+        out = fn()
+        sync()
+        got = {k: v for k, v in rp.LAUNCHES.items() if v}
+        log(f"[solver {name}] launches {got}, want {want}")
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, want {want}")
+        return out
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a.double() - b.double())
+                     / torch.linalg.vector_norm(b.double()))
+
+    def check_rel(name, a, b, bound=1e-3):
+        err = rel(a, b)
+        log(f"[solver {name}] relative L2 {err:.3e} (bound {bound})")
+        if not err <= bound:
+            raise AssertionError(f"{name}: relative L2 {err} > {bound}")
+
+    def check_hist(name, a, b, bound=1e-3):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        err = float(np.max(np.abs(a - b) / np.abs(b))) if len(a) else 0.0
+        log(f"[solver {name}] largest relative difference {err:.3e} over "
+            f"{len(a)} entries (bound {bound})")
+        if len(a) != len(b) or not err <= bound:
+            raise AssertionError(f"{name}: history differs: {err}")
+
+    fwd, bwd = rp.routed_fwd.__name__, rp.routed_bwd_gather.__name__
+    truth = torch.tensor(smooth_phantom(grid, 17), dtype=torch.float32,
+                         device=dev)
+    with torch.no_grad():
+        y = op(truth)
+    op_pre = prt.Operator(grid, geom, mode="precomputed", device=dev)
+
+    # a. SART-preconditioned cg, 30 iterations: the preconditioner's
+    # forward and adjoint, cg's init (one forward, two adjoints), one of
+    # each an iteration, the reprojection's forward
+    n = 30
+
+    def cg_a():
+        P = solve.sart_preconditioner(op)
+        return solve.cg(op, y, num_iterations=n, damp=1e-3, precond=P)
+
+    x, reproj, info = launches("cg", cg_a, {fwd: 1 + 1 + n + 1,
+                                            bwd: 1 + 2 + n})
+    rn = info["rnorm"]
+    misfit = rel(reproj, y)
+    log(f"[solver cg] rnorm[0] {rn[0]:.6g}, rnorm[-1] {rn[-1]:.6g}, "
+        f"bnorm {info['bnorm']:.6g}, iterations {info['iterations']}, "
+        f"reprojection misfit {misfit:.6g}")
+    if not (len(rn) == n and info["iterations"] == n
+            and np.all(np.isfinite(rn)) and rn[-1] < 1e-2 * rn[0]
+            and bool(torch.isfinite(x).all()) and misfit < 0.05):
+        raise AssertionError("cg did not converge")
+
+    # b. the same solve on the plain table path, 10 iterations
+    n = 10
+    xa, _, ia = launches("cg auto", lambda: solve.cg(
+        op, y, num_iterations=n, damp=1e-3), {fwd: 1 + n + 1, bwd: 2 + n})
+    xp, _, ip = launches("cg precomputed", lambda: solve.cg(
+        op_pre, y, num_iterations=n, damp=1e-3), {})
+    check_rel("cg auto vs precomputed x", xa, xp)
+    check_hist("cg auto vs precomputed rnorm", ia["rnorm"], ip["rnorm"])
+
+    # c. mlem on seeded Poisson counts, 20 sweeps: the sensitivity's
+    # forward and adjoint, one of each a sweep, the reprojection
+    scale = 500.0
+    counts = torch.tensor(np.random.default_rng(18).poisson(
+        scale * y.double().cpu().numpy()), device=dev)
+    n = 20
+    xm, _, im = launches("mlem", lambda: solve.mlem(
+        op, counts, num_iterations=n, scale=scale),
+        {fwd: 1 + n + 1, bwd: 1 + n})
+    nll = im["nll"]
+    ones = torch.ones(tuple(geom.shape), device=dev)
+    sens = op.T(ones)
+    log(f"[solver mlem] nll {nll[0]:.8g} -> {nll[-1]:.8g}, x in "
+        f"[{float(xm.min()):.4g}, {float(xm.max()):.4g}]")
+    if not (len(nll) == n and np.all(nll[1:] <= nll[:-1] * (1 + 1e-6))
+            and bool((xm >= 0).all())
+            and torch.equal(im["sensitivity"], sens)):
+        raise AssertionError("mlem: NLL rose, x < 0 or sensitivity wrong")
+    xmp, _, imp = launches("mlem precomputed", lambda: solve.mlem(
+        op_pre, counts, num_iterations=n, scale=scale), {})
+    check_rel("mlem auto vs precomputed x", xm, xmp)
+    check_hist("mlem auto vs precomputed nll", nll, imp["nll"])
+
+    class TimedOperator(prt.Operator):
+        """An Operator that records each construction's seconds and table
+        bytes: OS-EM builds its sub-operators as ``type(f)(...)``."""
+        built = []
+
+        def __init__(self, *args, **kw):
+            sync()
+            t0 = time.time()
+            super().__init__(*args, **kw)
+            sync()
+            self.built.append((time.time() - t0, self._nrays,
+                               self._tables.nbytes))
+
+    op_t = TimedOperator(grid, geom, config=op.config, device=dev)
+    k, n = 5, 4  # subsets, sweeps
+    xo, _, io = launches("osem", lambda: solve.mlem(
+        op_t, counts, num_iterations=n, scale=scale, subsets=k),
+        {fwd: k + k * n + 1, bwd: k + k * n})
+    for i, (sec, rays, nb) in enumerate(TimedOperator.built[1:]):
+        log(f"[solver osem] sub-operator {i}: setup {sec:.3f} s, {rays} "
+            f"rays, table bytes {nb}")
+    log(f"[solver osem] nll {io['nll'][0]:.8g} -> {io['nll'][-1]:.8g}")
+    check_close("osem summed sensitivity vs op.T(ones)",
+                io["sensitivity"], sens, 1e-4,
+                1e-4 * float(sens.abs().max()))
+    if not (len(TimedOperator.built) == 1 + k and bool((xo >= 0).all())):
+        raise AssertionError("osem: sub-operators or x < 0")
+    del op_t
+
+    # d. models: SphHarm gd (coefficients (25, 50)) and cg, dict gd
+    sph = SphHarmModel(grid, lmax=4, device=dev)
+    if sph.coeffs_shape != (25, grid.shape[0]):
+        raise AssertionError(f"SphHarm coeffs {sph.coeffs_shape}")
+    n = 20
+    _, _, lh = launches("sphharm gd", lambda: prt.retrieval.gd(
+        op, y, sph, num_iterations=n, progress_bar=False),
+        {fwd: n + 1, bwd: n})
+    h = next(iter(lh.values()))
+    log(f"[solver sphharm gd] loss {h[0]:.6g} -> {h[-1]:.6g}")
+    if not (len(h) == n and np.all(np.isfinite(h)) and h[-1] < h[0]):
+        raise AssertionError("SphHarm gd: the loss did not fall")
+    n = 10
+    cs, _, ics = launches("sphharm cg", lambda: solve.cg(
+        op, y, model=sph, num_iterations=n), {fwd: 1 + n + 1, bwd: 2 + n})
+    log(f"[solver sphharm cg] rnorm {ics['rnorm'][0]:.6g} -> "
+        f"{ics['rnorm'][-1]:.6g}")
+    if not (tuple(cs.shape) == sph.coeffs_shape
+            and ics["rnorm"][-1] < ics["rnorm"][0]):
+        raise AssertionError("SphHarm cg: the residual did not fall")
+
+    class Scaled(prt.models.Model):
+        def __init__(self, grid):
+            self.grid = grid
+
+        def __call__(self, c):
+            return c["vol"] * c["scale"]
+
+    init = {"vol": torch.full(tuple(grid.shape), 0.5, device=dev),
+            "scale": torch.ones((), device=dev)}
+    n = 5
+    cd, _, ld = launches("dict gd", lambda: prt.retrieval.gd(
+        op, y, Scaled(grid), coeffs=init, num_iterations=n, lr=0.05,
+        progress_bar=False), {fwd: n + 1, bwd: n})
+    h = next(iter(ld.values()))
+    log(f"[solver dict gd] loss {h[0]:.6g} -> {h[-1]:.6g}, scale "
+        f"{float(cd['scale']):.6g}")
+    if not (set(cd) == {"vol", "scale"} and h[-1] < h[0]):
+        raise AssertionError("dict gd: the loss did not fall")
+
+    # e. the other kernel pairs: fused (B4 + B2 on the backward-only
+    # tables), routed_dense='off' (B1 + B3)
+    n = 10
+    _, _, ifu = launches("cg fused", lambda: solve.cg(
+        opf, y, num_iterations=n, damp=1e-3),
+        {"fused_fwd": 1 + n + 1, bwd: 2 + n})
+    op_off = prt.Operator(grid, geom, device=dev,
+                          config=op.config.replace(routed_dense="off"))
+    _, _, ioff = launches("cg off", lambda: solve.cg(
+        op_off, y, num_iterations=n, damp=1e-3),
+        {fwd: 1 + n + 1, rp.routed_bwd_scatter.__name__: 2 + n})
+    for name, i in (("fused", ifu), ("off", ioff)):
+        check_hist(f"cg {name} vs precomputed rnorm", i["rnorm"],
+                   ip["rnorm"], 1e-2)
+    del op_off
+
+    # f. times: the difference of two runs over the difference of their
+    # iterations (init and reprojection cancel), beside phase 7's step
+    def per_iter(run, n0, n1):
+        return (timer(lambda: run(n1)) - timer(lambda: run(n0))) / (n1 - n0)
+
+    times = {
+        "cg iteration": per_iter(lambda k: solve.cg(
+            op, y, num_iterations=k, damp=1e-3), 10, 30),
+        "mlem sweep": per_iter(lambda k: solve.mlem(
+            op, counts, num_iterations=k, scale=scale), 5, 15),
+        "SphHarm gd step": per_iter(lambda k: prt.retrieval.gd(
+            op, y, sph, num_iterations=k, progress_bar=False), 5, 15),
+        "FullyDense gd step": per_iter(lambda k: prt.retrieval.gd(
+            op, y, prt.models.FullyDenseModel(grid), coeffs=truth,
+            num_iterations=k, progress_bar=False), 5, 15),
+        "training step (phase 7's)": timer(step),
+    }
+    c = torch.ones(sph.coeffs_shape, device=dev, requires_grad=True)
+    times["SphHarm model forward + backward"] = timer(
+        lambda: torch.autograd.grad(sph(c).sum(), c))
+    for name, ms in times.items():
+        log(f"[solver time] {name}: {ms:.4f} ms ({label})")
+    # what --profile traces: 10 iterations of each loop timed above
+    return {
+        "cg_10_iterations": lambda: solve.cg(op, y, num_iterations=10,
+                                             damp=1e-3),
+        "mlem_10_sweeps": lambda: solve.mlem(op, counts, num_iterations=10,
+                                             scale=scale),
+        "sphharm_gd_10_steps": lambda: prt.retrieval.gd(
+            op, y, sph, num_iterations=10, progress_bar=False),
+    }
+
+
 def main(argv):
     import argparse
 
@@ -268,7 +533,8 @@ def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="profile 5 training steps of each routed config "
-                    "and of fused mode; write the traces to DIR")
+                    "and of fused mode, and 5 calls of each solver run of "
+                    "phase 17; write the traces to DIR")
     profile_dir = ap.parse_args(argv).profile
     t_start = time.time()
     marks = [("imports", t_start)]  # (phase, time it started)
@@ -1189,19 +1455,41 @@ def main(argv):
             f"{max(byte_ms, op_ms):.4f} ms ({b16} bytes), "
             f"{byte_ms / ms:.1%} of the bound")
 
+    mark(17)
+    # 17. the solver path on the flagship: cg, mlem / OS-EM, SphHarmModel --
+    t0 = time.time()
+    solver_runs = solver_checks(torch, prt, rp, op, opf, dev,
+                                lambda fn: cuda_ms(fn, n=5, warm=2), one,
+                                smi)
+    log(f"[solver] phase {time.time() - t0:.1f} s")
+
     if profile_dir:
         mark("profile")
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         os.makedirs(profile_dir, exist_ok=True)
         for label, fn in (("step", one), ("fused_step", fone),
-                          *((f"{n}_step", f) for n, f in vsteps.items())):
+                          *((f"{n}_step", f) for n, f in vsteps.items()),
+                          *solver_runs.items()):
+            torch.cuda.synchronize()
+            t0 = time.time()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 for _ in range(5):
                     fn()
                 torch.cuda.synchronize()
-            log(f"[profile] {label}, 5 steps")
+            wall = (time.time() - t0) / 5 * 1e3
+            # the device's own events (kernels, copies): an operator's
+            # self device time repeats its kernels', and a range's span on
+            # the device (Adam's step) holds its idle gaps; both left out
+            busy = sum(e.self_device_time_total
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and not e.is_user_annotation) / 5e3
+            log(f"[profile] {label}, 5 calls: device busy {busy:.4f} ms a "
+                f"call, wall {wall:.4f} ms a call under the profiler "
+                f"({smi})")
             log(prof.key_averages().table(sort_by="cuda_time_total",
                                           row_limit=15))
             prof.export_chrome_trace(os.path.join(profile_dir,

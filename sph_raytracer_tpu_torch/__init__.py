@@ -2,14 +2,15 @@
 
 Raytraces 3D and time-varying 4D density volumes on spherical voxel grids
 through arbitrary detectors, producing differentiable line integrals, with
-a tomographic retrieval stack (models, losses, Adam gradient descent).
+a tomographic retrieval stack (models, losses, Adam gradient descent, and
+the CGNR / MLEM solvers of ``solve``).
 Same public names as ``sph_raytracer_tpu``; the routed and fused
 projection engines run hand-written CUDA kernels on an NVIDIA H100
 (``sm_90a``).  The
 package imports torch and numpy only — never jax, nor the JAX package.
 
-Not ported yet (ROADMAP): ``autotune``, ``solve``, ``plotting`` and the
-sharded operators.
+Not ported yet (ROADMAP): ``autotune``, ``plotting`` and the sharded
+operators.
 """
 
 from .grid import SphericalGrid
@@ -23,7 +24,7 @@ from .viewgeom import (
 )
 from .config import TraceConfig
 
-from . import loss, models, retrieval, utils  # noqa: E402,F401
+from . import loss, models, retrieval, solve, utils  # noqa: E402,F401
 
 __all__ = [
     "SphericalGrid",
@@ -37,6 +38,7 @@ __all__ = [
     "loss",
     "models",
     "retrieval",
+    "solve",
     "utils",
 ]
 

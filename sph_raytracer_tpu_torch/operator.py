@@ -119,7 +119,7 @@ class Operator:
         check_supported(config)
         if debug or debug_los is not None:
             raise NotImplementedError(
-                "Operator(debug=...) is not ported yet (ROADMAP A4)")
+                "Operator(debug=...) is not ported yet (ROADMAP A.3)")
         self.config = config
         self.device = resolve_device(device)
         self.grid = grid

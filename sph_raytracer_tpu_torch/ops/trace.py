@@ -15,7 +15,7 @@ ray, all rays vectorized:
 ``trace_method='ranked'`` runs this pipeline too: the JAX package's
 ``trace_crossings_ranked`` avoids a sort that is slow on a TPU and yields
 the same (voxel, length) pairs, and the sort is fast on the card.
-``voxel_order_*`` is not ported yet (ROADMAP A3).
+``voxel_order_*`` is not ported yet (ROADMAP A.3).
 """
 from __future__ import annotations
 

@@ -5,18 +5,21 @@ Port of ``sph_raytracer_tpu/retrieval.py`` (reference retrieval.py:24-127):
 the model coefficients and returns ``(best_coeffs, f(model(best_coeffs)),
 losses)`` with a per-iteration per-loss history dict, best-so-far
 tracking, Ctrl-C early stop, the ``model.proj`` hook and checkpoint /
-resume.  The optimizer is ``torch.optim.Adam`` (lr 1e-3) and the loop runs
-eagerly, one step per iteration; the loss history and the best-so-far
-state stay on the device until the loop ends, so a step does not wait
-for the host.
+resume.  The coefficients may be a tensor or a dict, list or tuple of
+tensors (:mod:`.utils.tree`): every leaf is optimized.  The optimizer is
+``torch.optim.Adam`` (lr 1e-3) and the loop runs eagerly, one step per
+iteration; the loss history and the best-so-far state stay on the device
+until the loop ends, so a step does not wait for the host.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from .loss import SquareLoss
+from .utils import tree
 from .utils.checkpoint import load_checkpoint, save_checkpoint
 from .utils.interop import adam_state_from_jax, adam_state_to_jax
 
@@ -44,8 +47,12 @@ def gd(f, y, model, coeffs=None, num_iterations=100, loss_fns=None,
             ``.device``.
         y: measurement stack matching ``f``'s output shape.
         model: :class:`~sph_raytracer_tpu_torch.models.Model` instance.
-        coeffs: initial coefficient tensor (default
-            ``ones(model.coeffs_shape)`` in float32 on ``f.device``).
+        coeffs: initial coefficients (default
+            ``ones(model.coeffs_shape)`` in float32 on ``f.device``): a
+            tensor, or a dict, list or tuple of tensors, every leaf
+            optimized and the whole structure passed to ``model``, the
+            losses and ``model.proj`` (the JAX package's pytree
+            coefficients, which replace the reference's ``optim_vars``).
         num_iterations: gradient steps.
         loss_fns: list of :class:`~sph_raytracer_tpu_torch.loss.Loss`
             (default ``[SquareLoss()]``).
@@ -83,22 +90,35 @@ def gd(f, y, model, coeffs=None, num_iterations=100, loss_fns=None,
     if coeffs is None:
         coeffs = torch.ones(model.coeffs_shape, dtype=torch.float32,
                             device=device)
-    c = torch.as_tensor(coeffs, device=device).detach().clone()
-    c.requires_grad_(True)
+    params = [torch.as_tensor(x, device=device).detach().clone()
+              .requires_grad_(True) for x in tree.leaves(coeffs)]
+    c = tree.unflatten(coeffs, params)
+    # the losses' dtype: the leaves' promoted dtype, as jnp.result_type
+    cdtype = functools.reduce(torch.promote_types,
+                              [p.dtype for p in params])
+    device = params[0].device
     if y is not None:
-        y = torch.as_tensor(y, dtype=c.dtype, device=c.device)
-    opt = optim([c], **kwargs)
+        y = torch.as_tensor(y, dtype=cdtype, device=device)
+    opt = optim(params, **kwargs)
 
     start_iter = 0
     if resume and checkpoint_path:
         state = load_checkpoint(checkpoint_path)
         if state is not None:
             leaves, start_iter = state
-            c_ck, st = adam_state_from_jax(leaves, device=c.device)
+            if len(leaves) != 3 * len(params) + 1:
+                raise ValueError(
+                    f"checkpoint {checkpoint_path} holds {len(leaves)} "
+                    f"leaves; coefficients of {len(params)} leaves need "
+                    f"{3 * len(params) + 1}")
+            cs, sts = adam_state_from_jax(leaves, device=device)
+            if len(params) == 1:
+                cs, sts = [cs], [sts]
             with torch.no_grad():
-                c.copy_(c_ck)
-            opt.state[c] = {k: v if k == "step" else v.to(c.dtype)
-                            for k, v in st.items()}
+                for p, p_ck, st in zip(params, cs, sts):
+                    p.copy_(p_ck)
+                    opt.state[p] = {k: v if k == "step" else v.to(p.dtype)
+                                    for k, v in st.items()}
 
     grad_mask = [lf.use_grad and lf.kind != "oracle" for lf in loss_fns]
     proj = getattr(model, "proj", None)
@@ -113,8 +133,8 @@ def gd(f, y, model, coeffs=None, num_iterations=100, loss_fns=None,
             pbar = None
 
     history = []  # per-iteration (n_losses,) float32 tensors, on device
-    best_loss = torch.tensor(math.inf, dtype=c.dtype, device=c.device)
-    best_c = c.detach().clone()
+    best_loss = torch.tensor(math.inf, dtype=cdtype, device=device)
+    best = [p.detach().clone() for p in params]
     it = start_iter
     try:
         while it < num_iterations:
@@ -122,18 +142,20 @@ def gd(f, y, model, coeffs=None, num_iterations=100, loss_fns=None,
             d = model(c)
             vals = [lf(f, y, d, c) for lf in loss_fns]
             tot = sum((v for v, m in zip(vals, grad_mask) if m),
-                      start=torch.zeros((), dtype=c.dtype, device=c.device))
+                      start=torch.zeros((), dtype=cdtype, device=device))
             # best-so-far of the coefficients each loss was evaluated at
             # (reference retrieval.py:111-113), kept on the device
             better = tot.detach() < best_loss
             best_loss = torch.where(better, tot.detach(), best_loss)
-            best_c = torch.where(better, c.detach(), best_c)
+            best = [torch.where(better, p.detach(), b)
+                    for p, b in zip(params, best)]
             if tot.requires_grad:
                 tot.backward()
             opt.step()
             if proj is not None:
                 with torch.no_grad():
-                    c.copy_(proj(c))
+                    for p, q in zip(params, tree.leaves(proj(c))):
+                        p.copy_(q)
             history.append(torch.stack(
                 [torch.as_tensor(v).detach().to(torch.float32) for v in vals]))
             it += 1
@@ -148,8 +170,8 @@ def gd(f, y, model, coeffs=None, num_iterations=100, loss_fns=None,
                 pbar.update(1)
             if checkpoint_path and checkpoint_every and (
                     it % checkpoint_every == 0):
-                save_checkpoint(checkpoint_path,
-                                adam_state_to_jax(c, opt.state[c]), it)
+                save_checkpoint(checkpoint_path, adam_state_to_jax(
+                    params, [opt.state[p] for p in params]), it)
     except KeyboardInterrupt:
         pass
     finally:
@@ -162,7 +184,8 @@ def gd(f, y, model, coeffs=None, num_iterations=100, loss_fns=None,
         for j, lf in enumerate(loss_fns):
             losses[lf] = vals[:, j].tolist()
     if not math.isfinite(float(best_loss)):
-        best_c = c.detach()
+        best = [p.detach() for p in params]
+    best_c = tree.unflatten(coeffs, best)
     with torch.no_grad():
         y_result = f(model(best_c))
     return best_c, y_result, losses

@@ -1,5 +1,5 @@
 """Utility subsystems: checkpointing and the JAX-state interop.
-``debug``, ``export`` and ``profiling`` are not ported yet (ROADMAP A10)."""
+``debug``, ``export`` and ``profiling`` are not ported yet (ROADMAP A.6)."""
 from .checkpoint import load_checkpoint, save_checkpoint
 from .interop import adam_state_from_jax, adam_state_to_jax
 

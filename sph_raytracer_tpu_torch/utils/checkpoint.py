@@ -16,24 +16,10 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from .tree import leaves as tree_leaves
+from .tree import unflatten
+
 __all__ = ["save_checkpoint", "load_checkpoint", "tree_leaves"]
-
-
-def tree_leaves(state: Any) -> list:
-    """Leaves of nested tuples / lists / dicts, depth-first."""
-    if isinstance(state, dict):
-        return [x for k in sorted(state) for x in tree_leaves(state[k])]
-    if isinstance(state, (tuple, list)):
-        return [x for s in state for x in tree_leaves(s)]
-    return [state]
-
-
-def _unflatten(like: Any, leaves) -> Any:
-    if isinstance(like, dict):
-        return {k: _unflatten(like[k], leaves) for k in sorted(like)}
-    if isinstance(like, (tuple, list)):
-        return type(like)(_unflatten(s, leaves) for s in like)
-    return next(leaves)
 
 
 def _numpy(x):
@@ -86,4 +72,4 @@ def load_checkpoint(path: str, like: Any = None
         raise ValueError(f"checkpoint {path} has {n} leaves, expected "
                          f"{len(like_leaves)}")
     leaves = [lf.astype(_numpy(l).dtype) for lf, l in zip(leaves, like_leaves)]
-    return _unflatten(like, iter(leaves)), iteration
+    return unflatten(like, leaves), iteration

@@ -23,7 +23,8 @@ backward on tiles that overflow its shared table), each ``<name>_bf16``
 instantiation against its
 plain version on bf16 tables, and one training step of each routed
 configuration (f32 and bf16 weights) and of fused mode on the card
-against the CPU.
+against the CPU, and ``solve.cg`` at ``'auto'`` against ``'precomputed'``
+with its launches.
 """
 import numpy as np
 import pytest
@@ -543,3 +544,26 @@ def test_fused_step_matches_cpu(cuda, w_dtype):
         out.append((y.detach().cpu(), v.grad.cpu()))
     torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(out[0][1], out[1][1], rtol=1e-4, atol=1e-7)
+
+
+def test_cg_routed_matches_precomputed(cuda):
+    """``solve.cg`` at ``mode='auto'`` (``routed_fwd`` + ``routed_bwd_gather``
+    through ``op.T``) against ``mode='precomputed'`` (the plain table path)
+    on the card: x and every residual norm within 1e-3 relative, and
+    1 + n + 1 forwards and 2 + n adjoints for n iterations."""
+    from sph_raytracer_tpu_torch import solve
+
+    grid, op = _problem(cuda)
+    op_p = prt.Operator(grid, op.geom, mode="precomputed", device=cuda)
+    truth = torch.rand(tuple(grid.shape),
+                       generator=torch.Generator().manual_seed(5)).to(cuda)
+    y = op_p(truth)
+    rp.reset_launches()
+    x, _, info = solve.cg(op, y, num_iterations=10, damp=1e-3)
+    assert rp.LAUNCHES["routed_fwd"] == 1 + 10 + 1
+    assert rp.LAUNCHES["routed_bwd_gather"] == 2 + 10
+    x_p, _, info_p = solve.cg(op_p, y, num_iterations=10, damp=1e-3)
+    rel = float(torch.linalg.vector_norm(x - x_p)
+                / torch.linalg.vector_norm(x_p))
+    assert rel <= 1e-3
+    np.testing.assert_allclose(info["rnorm"], info_p["rnorm"], rtol=1e-3)

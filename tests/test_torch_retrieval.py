@@ -187,3 +187,120 @@ def test_gd_accepts_chunk(problem):
     assert torch.equal(c_a, c_b) and torch.equal(y_a, y_b)
     assert list(h_a.values()) == list(h_b.values())
     assert len(next(iter(h_b.values()))) == 3
+
+
+class _JaxScaled(srt.models.Model):
+    """tests/test_retrieval.py::test_gd_pytree_coeffs's model: dict
+    coefficients ``{"vol", "scale"}``, volume ``vol * scale``."""
+
+    def __init__(self, grid):
+        self.grid = grid
+
+    def __call__(self, c):
+        return c["vol"] * c["scale"]
+
+    @property
+    def coeffs_shape(self):
+        return None  # the caller supplies the coefficients
+
+
+class _PortScaled(prt.models.Model):
+    def __init__(self, grid):
+        self.grid = grid
+
+    def __call__(self, c):
+        return c["vol"] * c["scale"]
+
+    @property
+    def coeffs_shape(self):
+        return None
+
+
+def _init(pkg_full, pkg_ones):
+    return {"vol": pkg_full((6, 6, 6), 0.5), "scale": pkg_ones(())}
+
+
+@pytest.fixture(scope="module")
+def jax_pytree(problem, tmp_path_factory):
+    """The JAX package's pytree ``gd``: 6 iterations, and 3 iterations
+    that leave a checkpoint."""
+    jgrid, jop, grid, op, y, c0 = problem
+    init = _init(jnp.full, jnp.ones)
+    ck = str(tmp_path_factory.mktemp("pytree") / "ck.npz")
+    jax_gd(jop, y, _JaxScaled(jgrid), coeffs=init, num_iterations=3,
+           lr=0.05, progress_bar=False, checkpoint_path=ck,
+           checkpoint_every=3)
+    return jax_gd(jop, y, _JaxScaled(jgrid), coeffs=init, num_iterations=6,
+                  lr=0.05, progress_bar=False), ck
+
+
+def _port_init():
+    return _init(lambda s, v: torch.full(s, v, dtype=torch.float64),
+                 lambda s: torch.ones(s, dtype=torch.float64))
+
+
+def test_gd_pytree_coeffs_match_jax(problem, jax_pytree):
+    """Dict coefficients (the JAX package's replacement for the
+    reference's ``optim_vars``): every leaf optimized, the same structure
+    back, per leaf and loss history equal to the JAX package's."""
+    _, _, grid, op, y, _ = problem
+    (jc, jy, jh), _ = jax_pytree
+    pc, py, ph = gd(op, y.copy(), _PortScaled(grid), coeffs=_port_init(),
+                    num_iterations=6, lr=0.05, progress_bar=False)
+    assert set(pc) == {"vol", "scale"}
+    assert pc["vol"].shape == (6, 6, 6) and pc["scale"].shape == ()
+    for k in pc:
+        assert pc[k].dtype == torch.float64
+        _close(pc[k].numpy(), jc[k])
+    _close(py.numpy(), jy)
+    (jhist,), (phist,) = jh.values(), ph.values()
+    assert len(phist) == 6 and phist[-1] < phist[0]
+    _close(phist, jhist)
+
+
+def test_resume_pytree_from_jax_checkpoint(problem, jax_pytree, tmp_path):
+    """3 JAX pytree steps → checkpoint (3n + 1 leaves: the n coefficient
+    leaves, count, the n mu, the n nu; dict keys sorted) → 3 port steps ==
+    6 JAX steps; the port's own checkpoint has the same layout."""
+    _, _, grid, op, y, _ = problem
+    (jc6, _, jh6), ck = jax_pytree
+    leaves, it = load_checkpoint(ck)
+    assert it == 3 and len(leaves) == 7
+    # "scale" sorts before "vol"
+    assert [np.shape(x) for x in leaves] == [
+        (), (6, 6, 6), (), (), (6, 6, 6), (), (6, 6, 6)]
+    assert leaves[2].dtype == np.int32 and int(leaves[2]) == 3
+    mine = str(tmp_path / "mine.npz")
+    pc, _, ph = gd(op, y.copy(), _PortScaled(grid), coeffs=_port_init(),
+                   num_iterations=6, lr=0.05, progress_bar=False,
+                   checkpoint_path=ck, resume=True)
+    for k in pc:
+        _close(pc[k].numpy(), jc6[k])
+    (jhist,), (phist,) = jh6.values(), ph.values()
+    assert len(phist) == 3
+    _close(phist, jhist[3:])
+    gd(op, y.copy(), _PortScaled(grid), coeffs=_port_init(),
+       num_iterations=3, lr=0.05, progress_bar=False, checkpoint_path=mine,
+       checkpoint_every=3)
+    mine_leaves, it = load_checkpoint(mine)
+    assert it == 3
+    for a, b in zip(mine_leaves, leaves):
+        assert a.dtype == b.dtype
+        _close(a, b)
+
+
+def test_interop_pytree_leaves():
+    """``[*coeffs, count, *mu, *nu]`` ↔ lists of tensors and Adam states;
+    a leaf count that is not 3n + 1 is refused."""
+    r = np.random.default_rng(3)
+    shapes = [(2, 3), ()]
+    leaves = ([r.random(s) for s in shapes] + [np.asarray(4, np.int32)]
+              + [r.random(s) for s in shapes] + [r.random(s) for s in shapes])
+    cs, sts = adam_state_from_jax(leaves, device="cpu")
+    assert [tuple(c.shape) for c in cs] == shapes
+    assert all(float(s["step"]) == 4 for s in sts)
+    for a, b in zip(leaves, adam_state_to_jax(cs, sts)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="3n"):
+        adam_state_from_jax(leaves[:-1])
