@@ -120,6 +120,35 @@ Phases (any failure raises and exits non-zero):
    training step and the card's name and power limit: reported, not
    claimed.
 
+18. the rest of the ``Operator`` surface (``surface_checks``), counters
+   reset just before and read just after each path, their launches added
+   to the kernels' line: ``routed_voxel_order='r'`` against ``'a'`` at
+   ``'auto'`` on the flagship and on a 100³ grid (the image bitwise equal;
+   the gradient and ``.T`` bitwise equal on every voxel whose row of the
+   transpose starts at the same offset mod 4 in both tables, which fixes
+   ``routed_bwd_gather``'s split of the row over its lanes, and within
+   rtol 1e-5 elsewhere), ``'off'`` and ``routed_banded=False`` within rtol
+   1e-5, B1 and B2 at ``'r'`` beside ``'a'`` in turns, each setup's
+   seconds; ``regs`` (its warning, and ``pack_linear(regs)`` against the
+   precomputed ``lin`` on 1,000 rays); ``Operator(debug=True)`` (the
+   central LOS, its f64 lengths against ``op(ones)`` at rtol 1e-5) and the
+   ``view_times`` operator's lerp header; ``with_payload(payload)`` for
+   ``'auto'``, fused and ``'precomputed'`` (no allocation, bitwise equal
+   forward, gradient and ``.T``); ``export_operator`` of the ``'auto'``
+   forward and gradient step and of a fused forward, loaded in a fresh
+   process that constructs no ``Operator``, traces nothing and builds no
+   table (bitwise equal, one launch a kernel a call), the archives' bytes
+   beside the tables'; ``plotting.preview3d`` of a seeded phantom, 50
+   frames of 256x256, fused (B4) against ``'auto'`` (B1), and, where
+   matplotlib is installed, ``image_stack`` and ``Operator.plot`` to PNG
+   files; ``utils.profiling.time_fn`` of phase 7's step beside CUDA events
+   and a ``trace`` of 5 steps that names ``routed_fwd``; ``autotune`` of
+   the default candidates at the flagship (each candidate's ms a step, a
+   second call reads the sidecar with no launch, ``cached_only`` on
+   another geometry returns the base config, the chosen config's image
+   within rtol 1e-5 of ``'auto'``'s) and of ``GRID_CANDIDATES`` on the
+   100³ grid.
+
 Before the last line: the card's name and power limit, then the
 ``{"kernels": [...]}`` line (15 kernels: 9 f32, 6 bf16); the last line is
 ``{"ok": true, "device": {...}}``.  The run's wall seconds, and its
@@ -523,6 +552,445 @@ def solver_checks(torch, prt, rp, op, opf, dev, timer, step, label):
         "sphharm_gd_10_steps": lambda: prt.retrieval.gd(
             op, y, sph, num_iterations=10, progress_bar=False),
     }
+
+
+# the export check's fresh process: constructs no Operator, traces nothing,
+# builds no table (each of those raises there), loads the archives named on
+# its command line and holds each output to the live operator's, bitwise
+EXPORT_CHILD = r"""
+import json, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+import sph_raytracer_tpu_torch as prt
+from sph_raytracer_tpu_torch.ops import fused_project, project, trace
+from sph_raytracer_tpu_torch.ops import routed_project as rp
+
+
+def refuse(*a, **k):
+    raise AssertionError("the exported program traced or built something")
+
+
+prt.Operator.__init__ = refuse
+for mod, name in ((trace, "trace_crossings"), (project, "trace_crossings"),
+                  (project, "precompute_table"),
+                  (fused_project, "trace_crossings"),
+                  (prt.operator, "precompute_table"),
+                  (prt.operator, "trace_crossings"),
+                  (prt.operator, "build_for"), (rp, "build_for"),
+                  (rp, "build_tables"), (rp, "build_window_tables")):
+    setattr(mod, name, refuse)
+from sph_raytracer_tpu_torch.utils.export import load_exported
+
+dev = sys.argv[2]
+data = torch.load(sys.argv[3], map_location=dev, weights_only=True)
+out = {}
+for name, path in json.loads(sys.argv[4]).items():
+    t0 = time.time()
+    f = load_exported(path, device=dev)
+    load_s = time.time() - t0
+    args = (data["x"], data["y"]) if name == "grad_step" else (data["x"],)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    rp.reset_launches()
+    got = f(*args)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    out[name] = {"load_s": load_s,
+                 "equal": bool(torch.equal(got, data[name])),
+                 "launches": {k: v for k, v in rp.LAUNCHES.items() if v}}
+print(json.dumps(out))
+"""
+
+
+def plot_pngs(plotting, op, image):
+    """``plotting.image_stack`` of ``image`` and ``op.plot()`` written to
+    PNG files with the Agg backend; fails on an empty file."""
+    import tempfile
+    import warnings
+
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    with tempfile.TemporaryDirectory() as tdir:
+        files = {"image_stack.png": lambda: plotting.image_stack(
+            image, colorbar=True), "operator_plot.png": op.plot}
+        for fname, draw in files.items():
+            with warnings.catch_warnings():
+                # Operator.plot of a collection returns an animation, saved
+                # here as one still frame
+                warnings.filterwarnings("ignore", "Animation was deleted")
+                art = draw()
+                plt.savefig(os.path.join(tdir, fname))
+                plt.close("all")
+                del art
+            size = os.path.getsize(os.path.join(tdir, fname))
+            log(f"[surface plot] {fname}: {size} B")
+            if not size > 0:
+                raise AssertionError(f"{fname} is empty")
+
+
+def surface_checks(torch, prt, rp, op, opd, big_grid, dev, timer, step,
+                   label, preview=(256, 256)):
+    """Phase 18: the rest of the ``Operator`` surface and the modules on it,
+    at ``op``'s size (``'auto'``: B1 + B2), ``opd`` a ``view_times``
+    operator and ``big_grid`` a denser grid for the voxel orders.  Each
+    path's launches are counted with the counters set to 0 just before and
+    read just after; returns their sums by kernel.  ``timer(fn)`` gives a
+    call's milliseconds; ``step`` is phase 7's training step; ``preview``
+    the image shape of ``preview3d``."""
+    import contextlib
+    import importlib.util
+    import io
+    import tempfile
+    import warnings
+
+    from sph_raytracer_tpu_torch import plotting
+    from sph_raytracer_tpu_torch.ops.trace import (pack_linear,
+                                                   voxel_order_flat,
+                                                   voxel_order_lin)
+    from sph_raytracer_tpu_torch.utils import profiling
+    from sph_raytracer_tpu_torch.utils.debug import debug_trace
+    from sph_raytracer_tpu_torch.utils.export import export_operator
+
+    grid, geom = op.grid, op.geom
+    gshape, R = tuple(grid.shape), op._nrays
+    total = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def counted(name, fn):
+        """``fn()`` with the counters set to 0 just before and read just
+        after; adds them to the phase's sums."""
+        sync()
+        rp.reset_launches()
+        out = fn()
+        sync()
+        got = {k: v for k, v in rp.LAUNCHES.items() if v}
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        log(f"[surface {name}] launches {got}")
+        return out, got
+
+    def built(name, *args, **kw):
+        sync()
+        t0 = time.time()
+        o = prt.Operator(*args, device=dev, **kw)
+        sync()
+        log(f"[surface {name}] setup {time.time() - t0:.3f} s")
+        return o
+
+    gen = torch.Generator().manual_seed(18)
+    x = torch.rand(gshape, generator=gen).to(dev)
+    yt = torch.rand(tuple(geom.shape), generator=gen).to(dev)
+
+    def fgt(o, xx=x, yy=yt):
+        """(image, gradient of mean((image - y)**2), op.T(y)), flat."""
+        v = xx.clone().requires_grad_(True)
+        img = o(v)
+        (g,) = torch.autograd.grad(torch.mean((img - yy) ** 2), v)
+        return img.detach().reshape(-1), g.reshape(-1), o.T(yy).reshape(-1)
+
+    # a. routed_voxel_order='r' against 'a' ------------------------------
+    # B1 reads the same ray-major rows, relabelled: the image is bitwise
+    # equal.  B2 splits a voxel's row over its lanes by the row's start
+    # mod 4, which the relabel moves: bitwise equal where the start mod 4
+    # is the same (or the row holds at most one crossing), elsewhere the
+    # same sum in another order (rtol 1e-5)
+    def same_start(ta, tr, vshape):
+        ids = torch.arange(ta.n_vox, dtype=torch.int32, device=dev)
+        rid = voxel_order_lin(ids, vshape, "r").long()
+        return ((ta.vox_ptr[:-1] % 4 == tr.vox_ptr[:-1][rid] % 4)
+                | (torch.diff(ta.vox_ptr) <= 1))
+
+    def order_check(name, op_a, op_r, xx, yy):
+        a = fgt(op_a, xx, yy)
+        r, _ = counted(f"r {name}", lambda: fgt(op_r, xx, yy))
+        if not torch.equal(r[0], a[0]):
+            raise AssertionError(f"{name}: 'r' image differs from 'a'")
+        same = same_start(op_a._tables, op_r._tables, op_a.grid.vshape)
+        for what, got, want in (("gradient", r[1], a[1]),
+                                (".T", r[2], a[2])):
+            if not torch.equal(got[same], want[same]):
+                raise AssertionError(f"{name} {what}: 'r' differs from 'a' "
+                                     "on a voxel whose row starts at the "
+                                     "same offset mod 4")
+            n_diff = int((got != want).sum())
+            log(f"[surface r {name}] image bitwise equal; {what} bitwise "
+                f"equal on {int(same.sum())} of {same.numel()} voxels (same "
+                f"row start mod 4, or at most one crossing); {n_diff} "
+                "voxels differ in all")
+            check_close(f"'r' {name} {what} vs 'a'", got, want, 1e-5,
+                        1e-6 * float(want.abs().max()))
+
+    op_r = built("r auto", grid, geom, config=prt.TraceConfig(
+        mode="routed", routed_voxel_order="r"))
+    order_check("flagship auto", op, op_r, x, yt)
+    for name, cfg in (("off", dict(routed_dense="off")),
+                      ("window", dict(routed_banded=False))):
+        op_va = built(f"a {name}", grid, geom, config=prt.TraceConfig(
+            mode="routed", **cfg))
+        op_vr = built(f"r {name}", grid, geom, config=prt.TraceConfig(
+            mode="routed", routed_voxel_order="r", **cfg))
+        a = fgt(op_va)
+        r, _ = counted(f"r {name}", lambda: fgt(op_vr))
+        for what, got, want in zip(("image", "gradient", ".T"), r, a):
+            check_close(f"'r' {name} {what} vs 'a'", got, want, 1e-5,
+                        1e-6 * float(want.abs().max()))
+        del op_va, op_vr
+
+    def order_times(name, op_a, op_r):
+        ta, tr = op_a._tables, op_r._tables
+        da = torch.rand(ta.n_vox, generator=gen).to(dev)
+        dr = voxel_order_flat(da, op_a.grid.vshape, "r").contiguous()
+        dy_ = torch.randn(R, generator=gen).to(dev)
+        runs = {("B1", "a"): lambda: rp.routed_fwd(ta, da),
+                ("B1", "r"): lambda: rp.routed_fwd(tr, dr),
+                ("B2", "a"): lambda: rp.routed_bwd_gather(ta, dy_),
+                ("B2", "r"): lambda: rp.routed_bwd_gather(tr, dy_)}
+        for kern in ("B1", "B2"):
+            ms = [timer(runs[kern, vo]) for vo in "arra"]
+            log(f"[surface r {name}] {kern}: 'a' {ms[0]:.4f} / {ms[3]:.4f} "
+                f"ms, 'r' {ms[1]:.4f} / {ms[2]:.4f} ms (in turns a, r, r, a; "
+                f"{label})")
+
+    order_times("flagship", op, op_r)
+    del op_r
+    big = {vo: built(f"{vo} vol100", big_grid, geom, config=prt.TraceConfig(
+        mode="routed", routed_voxel_order=vo)) for vo in "ar"}
+    xb = torch.rand(tuple(big_grid.shape), generator=gen).to(dev)
+    order_check("vol100 auto", big["a"], big["r"], xb, yt)
+    order_times("vol100", big["a"], big["r"])
+    del big, xb
+
+    # b. regs -------------------------------------------------------------
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        regs = op.regs
+    if not any("regs materializes" in str(w.message) for w in caught):
+        raise AssertionError("regs did not warn at the flagship")
+    M = op.gs.num_crossings
+    log(f"[surface regs] {tuple(regs.shape)} {regs.dtype}, "
+        f"{regs.numel() * regs.element_size()} B; warned: "
+        f"{next(str(w.message) for w in caught)[:80]}")
+    packed = pack_linear(regs, op.gs).reshape(R, M)
+    del regs
+    opp = built("precomputed", grid, geom, mode="precomputed")
+    rows = torch.randperm(R, generator=gen)[:1000].to(dev)
+    live = opp.lens[rows] > 0
+    if not (torch.equal(packed[rows][live], opp.lin[rows][live])
+            and int(live.sum()) > 0):
+        raise AssertionError("pack_linear(regs) differs from the "
+                             "precomputed table")
+    log(f"[surface regs] pack_linear(regs) equals Operator(mode="
+        f"'precomputed').lin on {int(live.sum())} live crossings of 1000 "
+        "sampled rays")
+    del packed
+
+    # c. debug --------------------------------------------------------------
+    # Operator(debug=True) prints the central LOS; the view_times LOS is
+    # the middle view's brightest pixel under op(ones) (the central one of
+    # its circular detectors misses the grid)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        opg = prt.Operator(grid, geom, device=dev, debug=True)
+    printed = buf.getvalue()
+    for name, o in (("flagship", opg), ("view_times", opd)):
+        with torch.no_grad():
+            ones = o(torch.ones(tuple(o.grid.shape), device=dev))
+        los = tuple(s // 2 for s in o.geom.shape)
+        if name == "view_times":
+            v = los[0]
+            los = (v, *np.unravel_index(int(torch.argmax(ones[v])),
+                                        tuple(ones.shape[1:])))
+        los = tuple(int(i) for i in los)
+        _, lens, _ = debug_trace(o, los, out=(buf := io.StringIO()))
+        text = buf.getvalue()
+        if name == "flagship" and printed != text:
+            raise AssertionError("Operator(debug=True) printed another "
+                                 "table than debug_trace")
+        at = float(ones[los])
+        head = text.split("\n idx")[0].splitlines()  # above the table
+        log(f"[surface debug {name}] " + " | ".join(head))
+        err = abs(float(lens.sum()) - at) / abs(at) if at else float("inf")
+        log(f"[surface debug {name}] sum of the f64 trace's lengths "
+            f"{float(lens.sum()):.7g}, op(ones) there {at:.7g} (f32 kernel), "
+            f"relative {err:.3e}")
+        if not err <= 1e-5:
+            raise AssertionError(f"debug {name}: lengths disagree")
+        if name == "view_times" and not any(
+                h.startswith("time lerp:") for h in head):
+            raise AssertionError("the view_times LOS printed no lerp header")
+    del opg
+
+    # d. payload / with_payload ------------------------------------------
+    opf2 = built("fused", grid, geom, mode="fused")
+    for name, o in (("auto", op), ("fused", opf2), ("precomputed", opp)):
+        pl = o.payload
+        sync()
+        before = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        o2 = o.with_payload(pl)
+        sync()
+        after = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        # the precomputed gradient scatters by atomics: made deterministic
+        # for this comparison
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(was or name == "precomputed")
+        try:
+            want = fgt(o)
+            got, _ = counted(f"with_payload {name}", lambda: fgt(o2))
+        finally:
+            torch.use_deterministic_algorithms(was)
+        nbytes = sum(t.numel() * t.element_size() for v in pl.values()
+                     for t in (v if isinstance(v, tuple) else (v,))
+                     if isinstance(t, torch.Tensor))
+        log(f"[surface payload {name}] keys {sorted(pl)}, {nbytes} B; "
+            f"with_payload allocated {after - before} B")
+        if after != before or not all(torch.equal(a, b)
+                                      for a, b in zip(got, want)):
+            raise AssertionError(f"with_payload {name}: allocated or differs")
+
+    # e. export, loaded in a fresh process --------------------------------
+    with tempfile.TemporaryDirectory() as tdir:
+        paths = {n: os.path.join(tdir, f"{n}.zip")
+                 for n in ("forward", "grad_step", "fused_forward")}
+        export_operator(op, paths["forward"], what="forward")
+        export_operator(op, paths["grad_step"], what="grad_step", loss_y=yt)
+        export_operator(opf2, paths["fused_forward"], what="forward")
+        img, g, _ = fgt(op)
+        with torch.no_grad():
+            fimg = opf2(x)
+        torch.save({"x": x, "y": yt, "forward": img.reshape(geom.shape),
+                    "grad_step": g.reshape(gshape),
+                    "fused_forward": fimg},
+                   os.path.join(tdir, "io.pt"))
+        for n, pth in paths.items():
+            tb = (opf2._fused_btd if n.startswith("fused") else op._tables)
+            log(f"[surface export] {n}: archive {os.path.getsize(pth)} B, "
+                f"tables {tb.nbytes} B")
+        t0 = time.time()
+        child = subprocess.run(
+            [sys.executable, "-c", EXPORT_CHILD, HERE, dev.type,
+             os.path.join(tdir, "io.pt"), json.dumps(paths)],
+            capture_output=True, text=True, timeout=300)
+    if child.returncode != 0:
+        raise AssertionError(f"export child failed:\n{child.stderr}")
+    res = json.loads(child.stdout.strip().splitlines()[-1])
+    want = {"forward": {"routed_fwd": 1},
+            "grad_step": {"routed_fwd": 1, "routed_bwd_gather": 1},
+            "fused_forward": {"fused_fwd": 1}}
+    for n, r in res.items():
+        log(f"[surface export] {n} in a fresh process (no Operator, no "
+            f"trace, no table build): load {r['load_s']:.3f} s, bitwise "
+            f"equal {r['equal']}, launches {r['launches']}")
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+        if not r["equal"] or (dev.type == "cuda" and r["launches"] != want[n]):
+            raise AssertionError(f"exported {n}: differs or launched "
+                                 f"{r['launches']}")
+    log(f"[surface export] child process {time.time() - t0:.1f} s")
+
+    # f. preview3d, image_stack and Operator.plot -------------------------
+    vol = smooth_phantom(grid, 17)
+    frames = gshape[-1]
+    prev = {}
+    for mode, kern in (("fused", "fused_fwd"), ("auto", "routed_fwd")):
+        t0 = time.time()
+        prev[mode], got = counted(f"preview3d {mode}", lambda: (
+            plotting.preview3d(vol, grid, shape=preview, mode=mode,
+                               device=dev)))
+        ms = (time.time() - t0) * 1e3
+        log(f"[surface preview3d] mode={mode}: {ms:.1f} ms for {frames} "
+            f"frames of {preview} (operator construction included; "
+            f"{label})")
+        if prev[mode].shape != (frames, *preview) or (
+                dev.type == "cuda" and got.get(kern) != frames):
+            raise AssertionError(f"preview3d {mode}: shape or launches")
+    pf, pa = (torch.from_numpy(prev[m]) for m in ("fused", "auto"))
+    filled = pa > 0
+    check_rays("preview3d fused vs auto, filled pixels", pf[filled],
+               pa[filled], 1e-4, 2e-5, KNIFE_ROUTED)
+    # image_stack and Operator.plot draw on the host with matplotlib, which
+    # the card's machine may lack (preview3d above needs none of it)
+    if importlib.util.find_spec("matplotlib") is None:
+        log("[surface plot] matplotlib is not installed here: image_stack "
+            "and Operator.plot not rendered (host-side drawing; "
+            "tests/test_torch_surface.py renders both on the CPU)")
+    else:
+        plot_pngs(plotting, op, prev["fused"][0])
+
+    # g. profiling ----------------------------------------------------------
+    fn_ms = profiling.time_fn(step, iters=20) * 1e3
+    log(f"[surface profiling] time_fn of phase 7's step {fn_ms:.4f} ms, "
+        f"CUDA events {timer(step):.4f} ms ({label})")
+    with tempfile.TemporaryDirectory() as tdir:
+        def five():
+            with profiling.trace(tdir):
+                for _ in range(5):
+                    step()
+
+        counted("profiling trace", five)
+        (fname,) = os.listdir(tdir)
+        with open(os.path.join(tdir, fname)) as fh:
+            body = fh.read()
+        log(f"[surface profiling] trace {fname}: {len(body)} B, names "
+            f"routed_fwd {'routed_fwd' in body}")
+        if dev.type == "cuda" and "routed_fwd" not in body:
+            raise AssertionError("the profiler's trace names no routed_fwd")
+
+    # h. autotune -----------------------------------------------------------
+    old = os.environ.get("SPH_TPU_TUNE_CACHE")
+    with tempfile.TemporaryDirectory() as tdir:
+        os.environ["SPH_TPU_TUNE_CACHE"] = tdir
+        try:
+            t0 = time.time()
+            cfg, _ = counted("autotune", lambda: prt.autotune(
+                grid, geom, device=dev))
+            tune_s = time.time() - t0
+            (side,) = os.listdir(tdir)
+            with open(os.path.join(tdir, side)) as fh:
+                rec = json.load(fh)
+            for r in rec["all"]:
+                log(f"[surface autotune] {r['fields']}: {r['ms']:.4f} "
+                    f"ms/step ({label})")
+            for c in rec["confirm"]:
+                log(f"[surface autotune] confirm {c['fields']}: "
+                    f"{c['ms'][0]:.4f} then {c['ms'][1]:.4f} ms/step")
+            log(f"[surface autotune] chose {rec['fields']} in "
+                f"{tune_s:.1f} s")
+            again, got = counted("autotune cached", lambda: prt.autotune(
+                grid, geom, device=dev))
+            other = orbit(prt, 50, (50, 100), z=0.2)
+            base = prt.autotune(grid, other, cached_only=True, device=dev)
+            # the wider sweep on the denser grid: every pair in both orders
+            t0 = time.time()
+            counted("autotune vol100", lambda: prt.autotune(
+                big_grid, geom, candidates=prt.tune.GRID_CANDIDATES,
+                device=dev))
+            side = [f for f in os.listdir(tdir) if f != side]
+            with open(os.path.join(tdir, side[0])) as fh:
+                big_rec = json.load(fh)
+            for r in big_rec["all"]:
+                log(f"[surface autotune vol100] {r['fields']}: "
+                    f"{r['ms']:.4f} ms/step ({label})")
+            log(f"[surface autotune vol100] chose {big_rec['fields']} in "
+                f"{time.time() - t0:.1f} s")
+        finally:
+            if old is None:
+                os.environ.pop("SPH_TPU_TUNE_CACHE", None)
+            else:
+                os.environ["SPH_TPU_TUNE_CACHE"] = old
+    if again != cfg or got or base != prt.TraceConfig(mode="routed"):
+        raise AssertionError("autotune's sidecar was not read back, or a "
+                             "cached call launched a kernel")
+    best = built("autotuned", grid, geom, config=cfg)
+    with torch.no_grad():
+        check_close(f"autotuned {rec['fields']} image vs 'auto'", best(x),
+                    op(x), 1e-5, 1e-6 * float(op(x).abs().max()))
+    return total
 
 
 def main(argv):
@@ -1462,6 +1930,18 @@ def main(argv):
                                 lambda fn: cuda_ms(fn, n=5, warm=2), one,
                                 smi)
     log(f"[solver] phase {time.time() - t0:.1f} s")
+
+    mark(18)
+    # 18. the rest of the Operator surface and the modules on it ----------
+    t0 = time.time()
+    surface = surface_checks(torch, prt, rp, op, opd,
+                             prt.SphericalGrid(shape=(100, 100, 100)), dev,
+                             cuda_ms, one, smi)
+    log(f"[surface] phase {time.time() - t0:.1f} s; launches by kernel "
+        f"{surface}")
+    # each kernel's launches: its earlier paths' and phase 18's
+    for k in kernels:
+        k["launches"] += surface.get(k["name"], 0)
 
     if profile_dir:
         mark("profile")

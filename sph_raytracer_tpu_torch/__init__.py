@@ -3,14 +3,15 @@
 Raytraces 3D and time-varying 4D density volumes on spherical voxel grids
 through arbitrary detectors, producing differentiable line integrals, with
 a tomographic retrieval stack (models, losses, Adam gradient descent, and
-the CGNR / MLEM solvers of ``solve``).
+the CGNR / MLEM solvers of ``solve``), the routed-engine autotuner
+(``autotune``) and matplotlib visualization (``plotting``).
 Same public names as ``sph_raytracer_tpu``; the routed and fused
 projection engines run hand-written CUDA kernels on an NVIDIA H100
 (``sm_90a``).  The
-package imports torch and numpy only — never jax, nor the JAX package.
+package imports torch and numpy only (matplotlib lazily) — never jax, nor
+the JAX package.
 
-Not ported yet (ROADMAP): ``autotune``, ``plotting`` and the sharded
-operators.
+Not ported yet (ROADMAP): the sharded operators.
 """
 
 from .grid import SphericalGrid
@@ -23,8 +24,9 @@ from .viewgeom import (
     ViewGeomCollection,
 )
 from .config import TraceConfig
+from .tune import autotune
 
-from . import loss, models, retrieval, solve, utils  # noqa: E402,F401
+from . import loss, models, plotting, retrieval, solve, utils  # noqa: E402,F401
 
 __all__ = [
     "SphericalGrid",
@@ -35,8 +37,10 @@ __all__ = [
     "ConeCircGeom",
     "ParallelGeom",
     "TraceConfig",
+    "autotune",
     "loss",
     "models",
+    "plotting",
     "retrieval",
     "solve",
     "utils",

@@ -8,7 +8,8 @@ Fields fall in two groups:
 * **Used:** ``ftype``, ``itype``, ``mode``, ``precompute_block_rays``,
   ``block_rays`` (the blockwise fused path), ``trace_method``,
   ``routed_dense``, ``routed_banded``, ``routed_fwd_reduce``,
-  ``routed_w_dtype``, ``fused_backend``, ``fused_bwd``.  In routed mode
+  ``routed_w_dtype``, ``routed_voxel_order``, ``fused_backend``,
+  ``fused_bwd``.  In routed mode
   ``routed_dense``, ``routed_banded`` and ``routed_fwd_reduce`` pick a
   (forward, backward) pair of kernels (``ops.routed_project.resolve``):
 
@@ -32,8 +33,7 @@ Fields fall in two groups:
   window chunk table, whose tile and window sizes are the port's own
   constants chosen for the card): ``routed_g``, ``routed_sr``,
   ``routed_kd``, ``routed_bands``, ``routed_band_rows`` (beyond the
-  'hist' check below), ``routed_chunk_multiple``, ``routed_voxel_order``,
-  ``routed_build``, ``pdevice`` (the trace runs on the operator's device),
+  'hist' check below), ``routed_chunk_multiple``, ``routed_build``, ``pdevice`` (the trace runs on the operator's device),
   ``sharded_local_build``; and ``interpret``: on the CPU every kernel
   wrapper runs its plain PyTorch version, as the JAX package's interpret
   mode runs its Pallas kernels on the CPU.  The TPU's VMEM-envelope clamps
@@ -86,6 +86,14 @@ class TraceConfig:
         routed_fwd_reduce: 'hist' runs the ray-tile reduce forward
             (``routed_fwd_hist``); needs ``routed_band_rows=8``, as in the
             JAX package.
+        routed_voxel_order: the voxel linearization of routed mode's
+            tables: 'a' the canonical azimuth-innermost C-order, 'r'
+            radius-innermost (``ops.trace.voxel_order_lin``), which changes
+            which voxels sit next to each other in the density the
+            forward gathers, in the gradient and in the rows of the
+            transpose.  The density argument, the outputs and the
+            gradient stay canonical (one ``movedim`` in, one out); fused
+            and precomputed modes keep 'a', as in the JAX package.
         routed_w_dtype: 'f32', or 'bf16': the banded engine's weight
             tables (``val`` / ``valT``: routed mode with
             ``routed_banded=True``, and fused mode's routed backward,

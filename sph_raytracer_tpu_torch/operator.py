@@ -27,16 +27,26 @@ device, with two execution modes:
 ``routed_w_dtype='bf16'`` stores the banded tables' lengths in bfloat16
 (routed mode's tables and fused mode's backward tables; the kernels'
 ``<name>_bf16`` instantiations read them); elsewhere it warns and keeps
-f32 (:mod:`.config`).
+f32 (:mod:`.config`).  ``routed_voxel_order='r'`` builds routed mode's
+tables on radius-innermost voxel ids (:func:`.ops.trace.voxel_order_lin`)
+and turns the density in and the gradient / adjoint out with one
+``movedim`` each; the public surface (the density argument, ``lin`` /
+``lens``, ``regs``, ``debug``) stays in the canonical order.
+
+``payload`` / ``with_payload`` hand the operator's device tensors to a
+copy of it (and to :mod:`.utils.export`), ``regs`` recomputes the region
+triplets of every ray, ``debug=True`` prints one line of sight's
+crossings at construction (:mod:`.utils.debug`) and ``plot`` draws the
+grid and the geometry.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``device=None`` means ``"cuda"``, and with no card present that raises.
 
-Not ported yet (ROADMAP): ``debug``/``debug_los``, ``payload``/
-``with_payload``, ``regs``, ``plot`` and the on-disk trace cache.
+Not ported yet (ROADMAP): the on-disk trace cache.
 """
 from __future__ import annotations
 
+import copy
 import warnings
 from typing import Optional
 
@@ -59,8 +69,14 @@ from .ops.project import (
     project_table,
 )
 from .ops.routed_project import BACKWARDS, build_for, resolve, routed_project
-from .ops.trace import GridSpec
-from .viewgeom import ViewGeom
+from .ops.trace import (
+    GridSpec,
+    trace_crossings,
+    voxel_order_flat,
+    voxel_order_lin,
+    voxel_order_unflat,
+)
+from .viewgeom import ViewGeom, Wireframe, render_wireframes
 
 __all__ = ["Operator", "resolve_device"]
 
@@ -94,6 +110,11 @@ class Operator:
             back to 'precomputed' with a warning).
         device: torch device of the tables and the computation; ``None``
             means ``"cuda"``.
+        debug: print a per-crossing table for one line of sight at
+            construction, before the table build
+            (:func:`.utils.debug.debug_trace`; only that LOS is traced).
+        debug_los: index tuple into ``geom.shape`` selecting the LOS
+            (default: the central pixel).
 
     Usage::
 
@@ -117,9 +138,6 @@ class Operator:
         if itype is not None:
             config = config.replace(itype=itype)
         check_supported(config)
-        if debug or debug_los is not None:
-            raise NotImplementedError(
-                "Operator(debug=...) is not ported yet (ROADMAP A.3)")
         self.config = config
         self.device = resolve_device(device)
         self.grid = grid
@@ -237,6 +255,14 @@ class Operator:
                     "routed_w_dtype='bf16' only applies to the BANDED routed "
                     f"engine (mode={mode!r}, routed_banded="
                     f"{config.routed_banded}); weight tables stay f32")
+        # the routed tables' voxel linearization: an internal layout of
+        # routed mode alone; fused and precomputed modes keep 'a'
+        self._vorder = config.routed_voxel_order if mode == "routed" else "a"
+
+        if debug:
+            from .utils.debug import debug_trace
+
+            debug_trace(self, debug_los)
 
         self.lin = self.lens = self._tables = self._fused_btd = None
         self._tables_memo = None
@@ -259,6 +285,7 @@ class Operator:
                                              device=self.device))
         elif mode == "routed":
             lin, lens = self._trace()
+            lin = voxel_order_lin(lin, self.grid.vshape, self._vorder)
             self._tables = build_for(lin, lens, self._flat_size, self._fwd,
                                      self._bwd, w_dtype=self._w_dtype)
         else:
@@ -347,7 +374,10 @@ class Operator:
         if self._mode == "fused":
             out = self._fused(flat)
         elif self._tables is not None:
-            flat2 = flat.reshape(-1, self._flat_size).to(torch.float32)
+            # one movedim for every channel: the tables' voxel order
+            flat2 = voxel_order_flat(
+                flat.reshape(-1, self._flat_size).to(torch.float32),
+                self.grid.vshape, self._vorder)
             out = torch.stack([routed_project(f, self._tables, self._bwd,
                                               self._fwd) for f in flat2])
         else:
@@ -394,7 +424,9 @@ class Operator:
             tables = self._ensure_fused_btd()
         if tables is not None:
             yf2 = yf.reshape(-1, self._nrays).to(torch.float32)
-            out = torch.stack([self._bwd(tables, v) for v in yf2])
+            out = voxel_order_unflat(
+                torch.stack([self._bwd(tables, v) for v in yf2]),
+                self.grid.vshape, self._vorder)
         else:
             lin, lens = self._lin_lens()
             out = backproject_table(yf, lin, lens,
@@ -412,11 +444,108 @@ class Operator:
         return self._tables_memo
 
     # ------------------------------------------------------------------
+    @property
+    def payload(self):
+        """The tensors the operator computes with, as a dict: ``{"dt":
+        tables}`` in routed mode (a ``RoutedTables`` or ``WindowTables``),
+        ``{"fbtd": tables}`` in fused mode with a routed backward (built
+        here when ``fused_bwd='auto'`` has not built them yet), ``{"lin",
+        "lens"}`` in precomputed mode, else ``{}``.  The keys are the JAX
+        package's; :meth:`with_payload` rebinds them and
+        :func:`.utils.export.export_operator` writes them."""
+        if self._tables is not None:
+            return {"dt": self._tables}
+        if (self._fused_btd is None and self._fused_bwd_lazy
+                and self._mode == "fused"):
+            self._ensure_fused_btd()
+        if self._fused_btd is not None:
+            return {"fbtd": self._fused_btd}
+        if self.lin is not None:
+            return {"lin": self.lin, "lens": self.lens}
+        return {}
+
+    def with_payload(self, payload):
+        """A shallow copy of this operator computing with ``payload``'s
+        tensors (see :attr:`payload`); nothing is copied or built.  The
+        port's tables carry their own sizes, so an ``"fbtd"`` payload from
+        another instance needs no routing metadata of this one (the JAX
+        package builds its fused backward first, for that metadata); the
+        sizes are checked instead."""
+        for key in ("dt", "fbtd"):
+            t = payload.get(key)
+            if t is not None and (t.n_rays, t.n_vox) != (self._nrays,
+                                                           self._flat_size):
+                raise ValueError(
+                    f"payload {key!r} has {t.n_rays} rays and {t.n_vox} "
+                    f"voxels; this operator {self._nrays} and "
+                    f"{self._flat_size}")
+        new = copy.copy(self)
+        if "dt" in payload:
+            new._tables = payload["dt"]
+        if "fbtd" in payload:
+            new._fused_btd = payload["fbtd"]
+        if "lin" in payload:
+            new.lin, new.lens = payload["lin"], payload["lens"]
+        return new
+
+    # rays·M above which ``regs`` warns before materializing its (3, rays,
+    # M) tensor (GB-class at the flagship)
+    REGS_WARN_ELEMS = 10**7
+
+    @property
+    def regs(self):
+        """(3, *geom.shape, M) region triplets of every ray, traced on the
+        operator's device in its ``ftype`` at each access (the packed
+        tables are what is kept).  Warns above ``REGS_WARN_ELEMS`` rays·M
+        elements; ``Operator(debug=True)`` / :func:`.utils.debug.
+        debug_trace` inspect one line of sight in O(M)."""
+        M = int(self.gs.num_crossings)
+        elems = int(self._nrays) * M
+        if elems > self.REGS_WARN_ELEMS:
+            size = torch.empty((), dtype=self.config.itype).element_size()
+            warnings.warn(
+                f"Operator.regs materializes a (3, {self._nrays}, {M}) "
+                f"tensor ({3 * elems * size / 2**30:.1f} GiB on device); "
+                "for per-LOS inspection use "
+                "Operator(debug=True)/utils.debug.debug_trace instead",
+                stacklevel=2)
+        xs = torch.as_tensor(np.asarray(self.geom.ray_starts),
+                             dtype=self.config.ftype, device=self.device)
+        rays = torch.as_tensor(np.asarray(self.geom.rays),
+                               dtype=self.config.ftype, device=self.device)
+        regs, _, _ = trace_crossings(self.gs, xs, rays,
+                                     itype=self.config.itype)
+        return regs
+
+    # ------------------------------------------------------------------
     def __repr__(self):
         if self.dynamic:
             return (f"Operator({(self.geom.shape[0], *self.grid.shape)} → "
                     f"{tuple(self.geom.shape)})")
         return f"Operator({tuple(self.grid.shape)} → {tuple(self.geom.shape)})"
+
+    def plot(self, plot_geom=True, plot_path=True, plot_grid=True,
+             ax=None, grid=None, geom=None):
+        """Matplotlib wireframe of the grid, the geometry and its path
+        (``operator.py:1309-1332`` of the JAX package)."""
+        grid = self.grid if grid is None else grid
+        geom = self.geom if geom is None else geom
+
+        frames = geom.wireframe_frames() if plot_geom else [Wireframe.empty()]
+        pos = getattr(geom, "pos", None)
+        path = pos if (plot_path and pos is not None
+                       and np.ndim(pos) == 2) else None
+
+        if plot_grid:
+            import matplotlib.pyplot as plt
+
+            if ax is None:
+                fig = plt.figure(figsize=(3, 3))
+                ax = fig.add_subplot(projection="3d", computed_zorder=False)
+            grid.plot(ax)
+
+        return render_wireframes(
+            frames, bound=np.abs(geom.ray_starts).max(), ax=ax, path=path)
 
 
 def _round_block(n: int) -> int:

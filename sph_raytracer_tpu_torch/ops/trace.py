@@ -15,7 +15,11 @@ ray, all rays vectorized:
 ``trace_method='ranked'`` runs this pipeline too: the JAX package's
 ``trace_crossings_ranked`` avoids a sort that is slow on a TPU and yields
 the same (voxel, length) pairs, and the sort is fast on the card.
-``voxel_order_*`` is not ported yet (ROADMAP A.3).
+
+``voxel_order_lin`` / ``_flat`` / ``_unflat`` relabel voxel ids and
+densities between the canonical azimuth-innermost order and the
+radius-innermost one of ``routed_voxel_order='r'`` (routed mode's table
+layout).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import dataclasses
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from .intersect import (
@@ -32,7 +37,8 @@ from .intersect import (
     sphere_crossings,
 )
 
-__all__ = ["GridSpec", "trace_crossings", "pack_linear"]
+__all__ = ["GridSpec", "trace_crossings", "pack_linear",
+           "voxel_order_lin", "voxel_order_flat", "voxel_order_unflat"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,3 +174,51 @@ def pack_linear(regs, gs: GridSpec, itype=torch.int32):
     e = torch.clamp(regs[1], 0, gs.ne - 1)
     a = torch.clamp(regs[2], 0, gs.na - 1)
     return ((r * gs.ne + e) * gs.na + a).to(itype)
+
+
+def voxel_order_lin(lin, vshape, order: str):
+    """Relabel packed voxel ids from the canonical azimuth-innermost
+    C-order (:func:`pack_linear`) into ``order``'s linearization.
+
+    ``order='r'`` is radius-innermost: ``v' = (e·na + a)·nr + r``.  4D ids
+    (``t·V`` offsets already added) are relabelled per time slice.  Works
+    on tensors and numpy arrays alike; a no-op for ``order='a'``.
+    """
+    if order == "a":
+        return lin
+    if order != "r":
+        raise ValueError(f"unknown voxel order {order!r} (want 'a' or 'r')")
+    nr, ne, na = (int(s) for s in vshape)
+    V = nr * ne * na
+    t = lin // V
+    v = lin - t * V
+    r = v // (ne * na)
+    rem = v - r * (ne * na)
+    out = t * V + rem * nr + r
+    if isinstance(lin, np.ndarray):
+        return out.astype(lin.dtype)
+    return out.to(lin.dtype)
+
+
+def voxel_order_flat(flat, vshape, order: str):
+    """Reorder a ``(..., T·V)`` flat density from canonical order into
+    ``order``'s linearization: a ``movedim`` and one copy, never a gather.
+    Inverse: :func:`voxel_order_unflat`."""
+    if order == "a":
+        return flat
+    nr, ne, na = (int(s) for s in vshape)
+    lead = flat.shape[:-1]
+    T = flat.shape[-1] // (nr * ne * na)
+    x = flat.reshape(*lead, T, nr, ne, na).movedim(-3, -1)
+    return x.reshape(*lead, flat.shape[-1])
+
+
+def voxel_order_unflat(flat, vshape, order: str):
+    """Inverse of :func:`voxel_order_flat`."""
+    if order == "a":
+        return flat
+    nr, ne, na = (int(s) for s in vshape)
+    lead = flat.shape[:-1]
+    T = flat.shape[-1] // (nr * ne * na)
+    x = flat.reshape(*lead, T, ne, na, nr).movedim(-1, -3)
+    return x.reshape(*lead, flat.shape[-1])

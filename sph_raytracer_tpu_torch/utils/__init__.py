@@ -1,7 +1,9 @@
-"""Utility subsystems: checkpointing and the JAX-state interop.
-``debug``, ``export`` and ``profiling`` are not ported yet (ROADMAP A.6)."""
+"""Utility subsystems: checkpointing, the JAX-state interop, the per-LOS
+debug tracer (``debug``), profiling and timing (``profiling``) and the
+serving export (``export``)."""
+from . import debug, export, profiling  # noqa: F401
 from .checkpoint import load_checkpoint, save_checkpoint
 from .interop import adam_state_from_jax, adam_state_to_jax
 
 __all__ = ["save_checkpoint", "load_checkpoint", "adam_state_from_jax",
-           "adam_state_to_jax"]
+           "adam_state_to_jax", "debug", "export", "profiling"]

@@ -23,8 +23,8 @@ backward on tiles that overflow its shared table), each ``<name>_bf16``
 instantiation against its
 plain version on bf16 tables, and one training step of each routed
 configuration (f32 and bf16 weights) and of fused mode on the card
-against the CPU, and ``solve.cg`` at ``'auto'`` against ``'precomputed'``
-with its launches.
+against the CPU, ``solve.cg`` at ``'auto'`` against ``'precomputed'``
+with its launches, and ``routed_voxel_order='r'`` against ``'a'``.
 """
 import numpy as np
 import pytest
@@ -567,3 +567,40 @@ def test_cg_routed_matches_precomputed(cuda):
                 / torch.linalg.vector_norm(x_p))
     assert rel <= 1e-3
     np.testing.assert_allclose(info["rnorm"], info_p["rnorm"], rtol=1e-3)
+
+
+def test_voxel_order_r_matches_a(cuda):
+    """``routed_voxel_order='r'`` against ``'a'`` at ``'auto'`` on the card
+    at a mid size.  The image (``routed_fwd``: the same ray-major rows,
+    relabelled) is bitwise equal.  ``routed_bwd_gather`` splits a voxel's
+    row over its lanes by the row's start mod 4 (aligned quads), and the
+    relabel moves where each row starts: the gradient and ``.T`` are
+    bitwise equal on every voxel whose row starts at the same offset mod 4
+    in both tables (or holds at most one crossing), and within rtol 1e-5
+    elsewhere (the same sum, added in another order)."""
+    grid = prt.SphericalGrid(shape=(24, 20, 20))
+    geom = sum(
+        prt.ConeRectGeom((32, 36), pos=(2 * np.cos(t), 2 * np.sin(t), 0.3),
+                         fov=(45, 45))
+        for t in np.linspace(0, 2 * np.pi, 6, endpoint=False))
+    ops = {vo: prt.Operator(grid, geom, device=cuda, config=prt.TraceConfig(
+        routed_voxel_order=vo)) for vo in "ar"}
+    gen = torch.Generator().manual_seed(7)
+    x = torch.rand(tuple(grid.shape), generator=gen).to(cuda)
+    y = torch.rand(tuple(geom.shape), generator=gen).to(cuda)
+    out = {}
+    for vo, op in ops.items():
+        v = x.clone().requires_grad_(True)
+        img = op(v)
+        (g,) = torch.autograd.grad(torch.mean((img - y) ** 2), v)
+        out[vo] = (img.detach(), g.reshape(-1), op.T(y).reshape(-1))
+    assert torch.equal(out["r"][0], out["a"][0])
+    ta, tr = ops["a"]._tables, ops["r"]._tables
+    ids = torch.arange(ta.n_vox, device=cuda, dtype=torch.int32)
+    rid = prt.ops.trace.voxel_order_lin(ids, grid.vshape, "r").long()
+    start_a, start_r = ta.vox_ptr[:-1], tr.vox_ptr[:-1][rid]
+    same = (start_a % 4 == start_r % 4) | (torch.diff(ta.vox_ptr) <= 1)
+    for got, want in zip(out["r"][1:], out["a"][1:]):
+        assert torch.equal(got[same], want[same])
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-6 * float(want.abs().max()))
