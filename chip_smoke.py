@@ -149,6 +149,27 @@ Phases (any failure raises and exits non-zero):
    within rtol 1e-5 of ``'auto'``'s) and of ``GRID_CANDIDATES`` on the
    100³ grid.
 
+19. ``parallel/`` (``sharded_checks``) at ``examples/multichip_scaling.py``'s
+   widths (100³ grid, 20 ``ConeRectGeom((100, 200))`` views at radius 3,
+   z = 0.4: 400,000 rays; cut from config #5's 200 views to the example's
+   20), each path's launches counted with the counters set to 0 just before
+   and read just after and held to the code's formula: the unsharded
+   'auto', 'off' and fused operators; one rank over a ``file://`` store
+   (NCCL): ``ShardedOperator`` at 'auto', 'off' and fused and
+   ``VolShardedOperator`` at 'auto', image, gradient and ``.T`` bitwise
+   equal to the unsharded operator's ('off''s scatter atomics within rtol
+   1e-5), the step (forward, loss, gradient) beside the unsharded one in
+   turns (and 5 of each profiled) and the collective alone; four ranks
+   sharing the card, each a process of a gloo group over CUDA tensors
+   (``rank_process``): 'auto', fused and the volume split within 1e-5 of
+   the largest value, every rank the same, each rank's kernels timed,
+   three rays over four ranks (one rank empty), and ``retrieval.gd`` for 3
+   iterations through the four 'auto' ranks against the unsharded run;
+   the trace and table caches (``SPH_TPU_TRACE_CACHE``,
+   a temporary directory): the 'auto' setup cold and warm at the flagship
+   and here, the warm tables bitwise the cold's, no trace on a hit; the
+   phase's peak device memory.
+
 Before the last line: the card's name and power limit, then the
 ``{"kernels": [...]}`` line (15 kernels: 9 f32, 6 bf16); the last line is
 ``{"ok": true, "device": {...}}``.  The run's wall seconds, and its
@@ -990,6 +1011,510 @@ def surface_checks(torch, prt, rp, op, opd, big_grid, dev, timer, step,
     with torch.no_grad():
         check_close(f"autotuned {rec['fields']} image vs 'auto'", best(x),
                     op(x), 1e-5, 1e-6 * float(op(x).abs().max()))
+    return total
+
+
+# examples/multichip_scaling.py:25-33 at its defaults: a 100³ grid and 20
+# ConeRectGeom((100, 200)) views at radius 3, z = 0.4 (400,000 rays;
+# config #5's widths, cut from its 200 views)
+MULTICHIP = ((100, 100, 100), 20, (100, 200), 3.0, 0.4)
+
+
+def orbit_problem(prt, shape, views, det, radius, z):
+    """A grid and an orbit of ``views`` ``ConeRectGeom(det)`` views at
+    ``radius`` and height ``z`` (a spec a rank process rebuilds)."""
+    geom = sum(prt.ConeRectGeom(det, pos=(radius * np.cos(t),
+                                          radius * np.sin(t), z),
+                                fov=(45, 45))
+               for t in np.linspace(0, 2 * np.pi, views, endpoint=False))
+    return prt.SphericalGrid(shape=shape), geom
+
+
+def tiny_problem(prt):
+    """Three rays: over four ranks, the last holds none."""
+    return prt.SphericalGrid(shape=(5, 5, 5)), prt.ViewGeom(
+        np.array([[2.0, 0.3, 0.2], [2.0, -0.2, 0.1], [0.3, 2.0, -0.2]]),
+        np.array([[-1.0, 0.0, 0.0], [-1.0, 0.1, 0.0], [0.0, -1.0, 0.1]]))
+
+
+def image_grad_T(torch, o, x, y):
+    """(image, gradient of mean((image - y)**2), op.T(y)), flat."""
+    v = x.clone().requires_grad_(True)
+    img = o(v)
+    (g,) = torch.autograd.grad(torch.mean((img - y) ** 2), v)
+    return img.detach().reshape(-1), g.reshape(-1), o.T(y).reshape(-1)
+
+
+GD_ITERS = 3   # phase 19's retrieval.gd iterations
+
+
+def rank_process(rank, n, work, queue, spec, device="cuda"):
+    """One of phase 19's ranks that share the card: a process of its own
+    in a gloo group (``file://`` store under ``work``).  NCCL refuses two
+    ranks on one GPU; and ranks as threads of one process cannot take a
+    gradient on a card, since the autograd engine runs a device's backward
+    on one thread of its own, where one rank's collective waits for the
+    others' forever.  On :func:`orbit_problem` of ``spec``: runs 'auto',
+    fused and the volume split, three rays (:func:`tiny_problem`) and
+    ``retrieval.gd``, each with its counters set to 0 just before and
+    read just after; times its kernels in turn with the other ranks; puts
+    ``(rank, results)`` (or ``(rank, traceback)``) on ``queue``.  With
+    ``device="cpu"`` (the phase's rehearsal) nothing is timed."""
+    import hashlib
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        sys.path.insert(0, HERE)
+        import sph_raytracer_tpu_torch as prt
+        from sph_raytracer_tpu_torch.ops import fused_project as fp
+        from sph_raytracer_tpu_torch.ops import routed_project as rp
+        from sph_raytracer_tpu_torch.parallel import (ShardedOperator,
+                                                      VolShardedOperator)
+        from sph_raytracer_tpu_torch.parallel.mesh import Mesh
+        from sph_raytracer_tpu_torch.tools.wfwd_probe import cuda_ms
+
+        dev = torch.device(device)
+        cuda = dev.type == "cuda"
+        if cuda:
+            dev = torch.device("cuda", 0)
+            torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"file://{work}/store",
+                                world_size=n, rank=rank)
+        mesh = Mesh(None, rank, n, dev)
+        inputs = {k: v.to(dev) for k, v in torch.load(
+            os.path.join(work, "inputs.pt")).items()}
+        grid, geom = orbit_problem(prt, *spec)
+        tgrid, tgeom = tiny_problem(prt)
+
+        def sync():
+            if cuda:
+                torch.cuda.synchronize()
+
+        def counted(fn):
+            sync()
+            rp.reset_launches()
+            t0 = time.time()
+            out = fn()
+            sync()
+            return out, {k: v for k, v in rp.LAUNCHES.items() if v}, \
+                time.time() - t0
+
+        def built_and_run(make, x, y):
+            o = make()
+            return o, image_grad_T(torch, o, x, y)
+
+        def shipped(arrays):
+            """Rank 0 ships its arrays; every rank their digest."""
+            arrays = [a.detach().cpu().numpy() for a in arrays]
+            digest = hashlib.sha256(b"".join(a.tobytes() for a in arrays))
+            return (arrays if rank == 0 else None), digest.hexdigest()
+
+        makers = {
+            "auto": lambda: ShardedOperator(grid, geom, mesh=mesh,
+                                            mode="routed"),
+            "fused": lambda: ShardedOperator(grid, geom, mesh=mesh,
+                                             mode="fused"),
+            "vol auto": lambda: VolShardedOperator(grid, geom, mesh=mesh)}
+        out, keep = {}, {}
+        for name, make in makers.items():
+            dist.barrier()
+            (o, got), launches, secs = counted(lambda: built_and_run(
+                make, inputs["x"], inputs["yt"]))
+            tab = o._fused_btd if name == "fused" else o._tables
+            lo, hi = o._rows
+            v0, v1 = o._vox
+            xr = inputs["x"].reshape(-1)[v0:v1].contiguous()
+            dyr = inputs["yt"].reshape(-1)[lo:hi].contiguous()
+            times = None
+            for r in range(n):  # one rank at a time on the card
+                dist.barrier()
+                if r == rank and cuda:
+                    fwd_ms = cuda_ms(
+                        (lambda: fp.fused_fwd(o.gs, o._frays, xr))
+                        if name == "fused" else (lambda: o._fwd(tab, xr)))
+                    times = (fwd_ms, cuda_ms(lambda: o._bwd(tab, dyr)))
+            out[name] = dict(rows=(lo, hi), vox=(v0, v1), nnz=tab.nnz,
+                             launches=launches, secs=secs, times=times,
+                             result=shipped(got))
+            if name == "auto":
+                keep["auto"] = o
+            del o, got, tab
+
+        tx, ty = (inputs[k] for k in ("tiny_x", "tiny_y"))
+        dist.barrier()
+        (o, got), launches, _ = counted(lambda: built_and_run(
+            lambda: ShardedOperator(tgrid, tgeom, mesh=mesh, mode="routed"),
+            tx, ty))
+        out["tiny"] = dict(rows=o._rows, nnz=o._tables.nnz,
+                           launches=launches, result=shipped(got))
+
+        dist.barrier()
+        (c, losses), launches, secs = counted(lambda: prt.retrieval.gd(
+            keep["auto"], inputs["y"], prt.models.FullyDenseModel(grid),
+            num_iterations=GD_ITERS, progress_bar=False)[::2])
+        out["gd"] = dict(launches=launches, secs=secs,
+                         losses=np.asarray(next(iter(losses.values()))),
+                         result=shipped([c]))
+        dist.barrier()
+        dist.destroy_process_group()
+        queue.put((rank, out))
+    except BaseException:  # noqa: B036 - reported to the phase
+        queue.put((rank, traceback.format_exc()))
+
+
+def sharded_checks(torch, prt, rp, dev, timer, label, spec, flagship):
+    """Phase 19: ``parallel/`` on :func:`orbit_problem` of ``spec``
+    (:data:`MULTICHIP`, the multichip example's widths), each path's
+    launches counted with the counters set to 0 just before and read just
+    after and held to the code's formula; returns their sums by kernel.
+
+    a. the unsharded operators ('auto', 'off', fused): the references;
+    b. one rank over a ``file://`` store (NCCL on the card, gloo on the
+       CPU): ``ShardedOperator`` at 'auto', 'off' and fused and
+       ``VolShardedOperator`` at 'auto', bitwise against a (the atomics of
+       'off''s scatter within rtol 1e-5); the step beside the unsharded
+       step, in turns, and the collective alone;
+    c. four ranks sharing the card, each a process (:func:`rank_process`):
+       'auto', fused and the volume split within 1e-5 of the largest
+       value, every rank the same, each rank's kernels timed; three rays
+       over four ranks; ``retrieval.gd`` at 'auto' against the unsharded
+       run (on the card only);
+    d. the caches: the 'auto' setup cold and warm at ``flagship`` (a
+       (grid, geom) pair) and here, the warm tables bitwise the cold's
+       (kept on the host meanwhile, so the device never holds both).
+
+    ``timer(fn)`` gives a call's milliseconds."""
+    import multiprocessing
+    import queue as queue_mod
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from sph_raytracer_tpu_torch import operator as op_mod
+    from sph_raytracer_tpu_torch.ops import fused_project as fp
+    from sph_raytracer_tpu_torch.parallel import (ShardedOperator,
+                                                  VolShardedOperator,
+                                                  distributed_init,
+                                                  make_mesh)
+
+    grid, geom = orbit_problem(prt, *spec)
+    gshape, rshape = tuple(grid.shape), tuple(geom.shape)
+    cuda = dev.type == "cuda"
+    total = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def held(name, got, want):
+        """A path's launches against the code's formula; adds them to the
+        phase's sums."""
+        log(f"[sharded {name}] launches {got} (formula {want})")
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, formula {want}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+
+    def counted(name, fn, want):
+        """``fn()`` with the counters set to 0 just before and read just
+        after, held to ``want`` (kernel -> launches)."""
+        sync()
+        rp.reset_launches()
+        out = fn()
+        sync()
+        held(name, {k: v for k, v in rp.LAUNCHES.items() if v}, want)
+        return out
+
+    def built(name, make):
+        sync()
+        t0 = time.time()
+        o = make()
+        sync()
+        log(f"[sharded {name}] setup {time.time() - t0:.3f} s")
+        return o
+
+    gen = torch.Generator().manual_seed(19)
+    x = torch.rand(gshape, generator=gen).to(dev)
+    yt = torch.rand(rshape, generator=gen).to(dev)
+
+    def step_of(o):
+        """One step: forward, mean-square loss, gradient."""
+        def one():
+            v = x.clone().requires_grad_(True)
+            torch.autograd.grad(torch.mean((o(v) - yt) ** 2), v)
+        return one
+
+    names = ("image", "gradient", ".T")
+    kw_of = {"auto": dict(mode="routed"),
+             "off": dict(config=prt.TraceConfig(mode="routed",
+                                                routed_dense="off")),
+             "fused": dict(mode="fused")}
+    pair = {"auto": ("routed_fwd", "routed_bwd_gather"),
+            "off": ("routed_fwd", "routed_bwd_scatter"),
+            "fused": ("fused_fwd", "routed_bwd_gather"),
+            "vol auto": ("routed_fwd", "routed_bwd_gather")}
+
+    def formula(name, ranks=1):
+        fwd, bwd = pair[name]
+        return {fwd: ranks, bwd: 2 * ranks}
+
+    # a. the unsharded references --------------------------------------
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    refs, ref_auto = {}, None
+    for name, kw in kw_of.items():
+        o = built(f"unsharded {name}", lambda: prt.Operator(
+            grid, geom, device=dev, **kw))
+        refs[name] = image_grad_T(torch, o, x, yt)
+        if name == "auto":
+            ref_auto, nnz = o, o._tables.nnz
+        if cuda and name != "off":  # the kernels at this size, unsharded
+            xf, yf = x.reshape(-1), yt.reshape(-1)
+            if name == "fused":
+                ms = {"fused_fwd": timer(
+                    lambda: fp.fused_fwd(o.gs, o._frays, xf))}
+            else:
+                ms = {"routed_fwd": timer(
+                          lambda: rp.routed_fwd(o._tables, xf)),
+                      "routed_bwd_gather": timer(
+                          lambda: rp.routed_bwd_gather(o._tables, yf))}
+            log(f"[sharded time] unsharded {name}: "
+                + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+                + f" ({label})")
+        del o
+    R, V = ref_auto._nrays, ref_auto._flat_size
+    log(f"[sharded] R={R}, V={V}, nnz={nnz}, 'auto' table bytes "
+        f"{ref_auto._tables.nbytes}")
+
+    # b. one rank over a file:// store -----------------------------------
+    store = tempfile.mkdtemp()
+    distributed_init(f"file://{store}/store", num_processes=1, process_id=0,
+                     device=dev)
+    try:
+        backend = dist.get_backend()
+        if backend != ("nccl" if cuda else "gloo"):
+            raise AssertionError(f"one-rank group on {backend}")
+        mesh = make_mesh(device=dev)
+        sop_auto = None
+        for name in ("auto", "off", "fused", "vol auto"):
+            cls = VolShardedOperator if name == "vol auto" else \
+                ShardedOperator
+            kw = {} if name == "vol auto" else kw_of[name]
+            o = built(f"{backend} {name}", lambda: cls(grid, geom, mesh=mesh,
+                                                      **kw))
+            got = counted(f"{backend} {name}",
+                          lambda: image_grad_T(torch, o, x, yt),
+                          formula(name))
+            ref = refs["auto" if name == "vol auto" else name]
+            for what, a, b in zip(names, got, ref):
+                if name == "off" and what != "image":
+                    # the scatter's atomics add in a run-to-run order
+                    check_close(f"one {backend} rank {name} {what}", a, b,
+                                1e-5, 1e-6 * float(b.abs().max()))
+                elif not torch.equal(a, b):
+                    raise AssertionError(f"one {backend} rank {name} {what}"
+                                         " not bitwise equal")
+            log(f"[check] one {backend} rank, {name}: "
+                + ("image, gradient, .T bitwise" if name != "off" else
+                   "image bitwise, gradient and .T within rtol 1e-5"))
+            if name == "auto":
+                sop_auto = o
+            del o
+        su, ss = step_of(ref_auto), step_of(sop_auto)
+        turns = [("unsharded", timer(su)), ("one rank", timer(ss)),
+                 ("one rank", timer(ss)), ("unsharded", timer(su))]
+        img, vol = torch.zeros(R, device=dev), torch.zeros(V, device=dev)
+        coll = (timer(lambda: mesh.all_reduce(img)),
+                timer(lambda: mesh.all_reduce(vol)))
+        if cuda:  # where a one-rank step's extra time goes
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            for what, fn in (("unsharded", su), ("one rank", ss)):
+                sync()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        fn()
+                    sync()
+                ev = prof.key_averages()
+                busy = sum(e.self_device_time_total for e in ev
+                           if e.device_type == DeviceType.CUDA
+                           and not e.is_user_annotation) / 5e3
+                top = sorted((e for e in ev if e.device_type ==
+                              DeviceType.CPU), key=lambda e:
+                             -e.self_cpu_time_total)[:6]
+                log(f"[sharded profile] {what} step: device busy "
+                    f"{busy:.4f} ms a step; most host time (self, a step): "
+                    + ", ".join(f"{e.key} {e.self_cpu_time_total / 5e3:.4f}"
+                                f" ms" for e in top) + f" ({label})")
+        log(f"[sharded time] step (forward, loss, gradient) ms in turns: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in turns)
+            + f"; {backend} all_reduce alone: image ({4 * R} B) "
+            f"{coll[0]:.4f} ms, volume ({4 * V} B) {coll[1]:.4f} ms "
+            f"({label})")
+        del sop_auto
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+    # c. four ranks sharing the card, each a process (gloo) --------------
+    truth = torch.rand(gshape, generator=gen).to(dev)
+    tgrid, tgeom = tiny_problem(prt)
+    tx = torch.rand(tuple(tgrid.shape), generator=gen).to(dev)
+    ty = torch.rand(tuple(tgeom.shape), generator=gen).to(dev)
+    tref = image_grad_T(torch, prt.Operator(tgrid, tgeom, device=dev,
+                                             mode="routed"), tx, ty)
+    with torch.no_grad():
+        y = ref_auto(truth)
+    c_ref, _, losses = prt.retrieval.gd(
+        ref_auto, y, prt.models.FullyDenseModel(grid),
+        num_iterations=GD_ITERS, progress_bar=False)
+    h_ref = np.asarray(next(iter(losses.values())))
+    n = 4
+    work = tempfile.mkdtemp()
+    torch.save({"x": x.cpu(), "yt": yt.cpu(), "y": y.cpu(),
+                "tiny_x": tx.cpu(), "tiny_y": ty.cpu()},
+               os.path.join(work, "inputs.pt"))
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=rank_process,
+                         args=(r, n, work, q, spec, dev.type))
+             for r in range(n)]
+    t0 = time.time()
+    got = {}
+    try:
+        for p in procs:
+            p.start()
+        while len(got) < n:
+            try:
+                r, out = q.get(timeout=10)
+                got[r] = out
+            except queue_mod.Empty:
+                if time.time() - t0 > 600 or any(
+                        p.exitcode not in (None, 0) for p in procs):
+                    raise AssertionError(
+                        f"four ranks: {n - len(got)} did not report "
+                        f"(exit codes {[p.exitcode for p in procs]})")
+        for p in procs:
+            p.join(60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        shutil.rmtree(work, ignore_errors=True)
+    for r in range(n):
+        if isinstance(got[r], str):
+            raise AssertionError(f"four ranks: rank {r} failed:\n"
+                                 f"{got[r]}")
+    log(f"[sharded 4 ranks] {time.time() - t0:.1f} s for four processes "
+        "(start, build, check, time)")
+
+    def same_on_every_rank(what, key):
+        digests = {got[r][key]["result"][1] for r in range(n)}
+        if len(digests) != 1:
+            raise AssertionError(f"four ranks {what}: the ranks' "
+                                 "results differ")
+
+    for name in ("auto", "fused", "vol auto"):
+        held(f"4 ranks {name}", {k: sum(got[r][name]["launches"].get(
+            k, 0) for r in range(n)) for k in pair[name]},
+            formula(name, n))
+        same_on_every_rank(name, name)
+        for what, a, b in zip(names, got[0][name]["result"][0],
+                              refs["auto" if name == "vol auto"
+                                   else name]):
+            check_close(f"4 ranks {name} {what}", torch.from_numpy(a),
+                        b.cpu(), 1e-5, 1e-5 * float(b.abs().max()))
+        for r in range(n) if cuda else ():
+            g = got[r][name]
+            log(f"[sharded time] 4 ranks {name}, rank {r} (rays "
+                f"[{g['rows'][0]}, {g['rows'][1]}), voxels "
+                f"[{g['vox'][0]}, {g['vox'][1]}), nnz {g['nnz']}): "
+                f"setup, image, gradient, .T {g['secs']:.3f} s; "
+                f"{pair[name][0]} {g['times'][0]:.4f} ms, "
+                f"{pair[name][1]} {g['times'][1]:.4f} ms ({label})")
+    live = sum(1 for r in range(n) if got[r]["tiny"]["nnz"])
+    if got[n - 1]["tiny"]["rows"][0] != got[n - 1]["tiny"]["rows"][1]:
+        raise AssertionError("three rays over four ranks left no rank "
+                             "empty")
+    held("3 rays over 4 ranks", {k: sum(
+        got[r]["tiny"]["launches"].get(k, 0) for r in range(n))
+        for k in pair["auto"]}, {"routed_fwd": live,
+                                 "routed_bwd_gather": 2 * live})
+    same_on_every_rank("3 rays", "tiny")
+    for what, a, b in zip(names, got[0]["tiny"]["result"][0], tref):
+        check_close(f"3 rays over 4 ranks {what}", torch.from_numpy(a),
+                    b.cpu(), 1e-5, 1e-6 * float(b.abs().max()))
+    held(f"4 ranks gd ({GD_ITERS} iterations)", {k: sum(
+        got[r]["gd"]["launches"].get(k, 0) for r in range(n))
+        for k in pair["auto"]},
+        {"routed_fwd": n * (GD_ITERS + 1),
+         "routed_bwd_gather": n * GD_ITERS})
+    same_on_every_rank("gd", "gd")
+    check_close(f"4 ranks gd ({GD_ITERS} iterations) coefficients",
+                torch.from_numpy(got[0]["gd"]["result"][0][0]),
+                c_ref.cpu(), 1e-5, 1e-5 * float(c_ref.abs().max()))
+    for r in range(n):
+        if not np.allclose(got[r]["gd"]["losses"], h_ref, rtol=1e-5):
+            raise AssertionError(f"gd losses {got[r]['gd']['losses']} "
+                                 f"against {h_ref}")
+    log(f"[check] gd through four ranks: loss {h_ref[0]:.6g} -> "
+        f"{h_ref[-1]:.6g} as unsharded, {got[0]['gd']['secs']:.3f} s "
+        "on rank 0")
+    if cuda:
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[sharded] peak device memory of this process {peak:.3f} GiB "
+            f"(the unsharded 'auto' tables "
+            f"{ref_auto._tables.nbytes / 2**30:.3f} GiB)")
+    del ref_auto
+
+    # d. the caches -------------------------------------------------------
+    def refuse_trace(*a, **k):
+        raise AssertionError("a warm cache hit traced")
+
+    cache = tempfile.mkdtemp()
+    old = os.environ.get("SPH_TPU_TRACE_CACHE")
+    os.environ["SPH_TPU_TRACE_CACHE"] = cache
+    real_trace = op_mod.precompute_table
+    try:
+        for name, (g_, geo_) in (("flagship", flagship),
+                                 ("multichip", (grid, geom))):
+            o = built(f"cache {name} cold", lambda: prt.Operator(
+                g_, geo_, device=dev, mode="routed"))
+            host = [a.cpu() if isinstance(a, torch.Tensor) else a
+                    for a in o._tables]
+            del o
+            op_mod.precompute_table = refuse_trace
+            try:
+                o = built(f"cache {name} warm", lambda: prt.Operator(
+                    g_, geo_, device=dev, mode="routed"))
+            finally:
+                op_mod.precompute_table = real_trace
+            for a, b in zip(o._tables, host):
+                if isinstance(b, torch.Tensor):
+                    if not (a.dtype == b.dtype and torch.equal(a.cpu(), b)):
+                        raise AssertionError(f"cache {name}: warm tables "
+                                             "differ from the cold build")
+                elif a != b:
+                    raise AssertionError(f"cache {name}: {a} != {b}")
+            disk = sum(os.path.getsize(os.path.join(d, f))
+                       for d, _, fs in os.walk(cache) for f in fs)
+            log(f"[check] cache {name}: warm tables bitwise the cold "
+                f"build's, no trace; {disk} B on disk so far")
+            del o, host
+    finally:
+        op_mod.precompute_table = real_trace
+        if old is None:
+            os.environ.pop("SPH_TPU_TRACE_CACHE", None)
+        else:
+            os.environ["SPH_TPU_TRACE_CACHE"] = old
+        shutil.rmtree(cache, ignore_errors=True)
     return total
 
 
@@ -1942,6 +2467,18 @@ def main(argv):
     # each kernel's launches: its earlier paths' and phase 18's
     for k in kernels:
         k["launches"] += surface.get(k["name"], 0)
+
+    mark(19)
+    # 19. parallel/: the ray- and the volume-sharded operators and the
+    # caches, at examples/multichip_scaling.py:25-33's widths (100³, 20
+    # views of ConeRectGeom((100, 200)) at radius 3: 400,000 rays) ------
+    t0 = time.time()
+    sharded = sharded_checks(torch, prt, rp, dev, cuda_ms, smi, MULTICHIP,
+                             (grid, geom))
+    log(f"[sharded] phase {time.time() - t0:.1f} s; launches by kernel "
+        f"{sharded}")
+    for k in kernels:
+        k["launches"] += sharded.get(k["name"], 0)
 
     if profile_dir:
         mark("profile")

@@ -9,9 +9,9 @@ Same public names as ``sph_raytracer_tpu``; the routed and fused
 projection engines run hand-written CUDA kernels on an NVIDIA H100
 (``sm_90a``).  The
 package imports torch and numpy only (matplotlib lazily) — never jax, nor
-the JAX package.
-
-Not ported yet (ROADMAP): the sharded operators.
+the JAX package.  The ray- and volume-sharded operators are in
+:mod:`.parallel` (``torch.distributed``), imported on demand as in the JAX
+package.
 """
 
 from .grid import SphericalGrid

@@ -33,8 +33,12 @@ Fields fall in two groups:
   window chunk table, whose tile and window sizes are the port's own
   constants chosen for the card): ``routed_g``, ``routed_sr``,
   ``routed_kd``, ``routed_bands``, ``routed_band_rows`` (beyond the
-  'hist' check below), ``routed_chunk_multiple``, ``routed_build``, ``pdevice`` (the trace runs on the operator's device),
-  ``sharded_local_build``; and ``interpret``: on the CPU every kernel
+  'hist' check below), ``routed_chunk_multiple``, ``routed_build`` (the
+  tables are built on the operator's device), ``pdevice`` (the trace runs
+  on the operator's device), ``sharded_local_build`` (each rank of
+  :class:`..parallel.ShardedOperator` always traces and builds its own
+  rays alone, bitwise the rows a build of every ray would give it); and
+  ``interpret``: on the CPU every kernel
   wrapper runs its plain PyTorch version, as the JAX package's interpret
   mode runs its Pallas kernels on the CPU.  The TPU's VMEM-envelope clamps
   and the dense-slot rep-skew gate of ``routed_dense`` have no counterpart

@@ -42,11 +42,26 @@ grid and the geometry.
 Entry points run on the card unless the caller asks for the CPU:
 ``device=None`` means ``"cuda"``, and with no card present that raises.
 
-Not ported yet (ROADMAP): the on-disk trace cache.
+``SPH_TPU_TRACE_CACHE=<dir>`` keeps traces and tables on disk, as the JAX
+package keeps its traces there: ``torch_trace_<hash>.npz`` holds a traced
+``(lin, lens)`` pair before the time offsets, ``torch_tables_<hash>/`` a
+built table set (:func:`.ops.routed_project.save_tables`).  The key holds
+the grid's boundaries, the rays, ``ftype`` / ``itype``, a version derived
+from the code (the sources that trace and build, and the build constants
+as they stand) and the range of rays (and of voxels) a sharded rank builds
+(:mod:`.parallel`); a table set's key adds the kernel pair, the weight
+dtype, the voxel order and the time offsets.  A hit traces nothing; a
+write goes to a temporary name first and is installed with
+``os.replace``.  The JAX package's ``trace_<hash>.npz`` files in the same
+directory are never read.
 """
 from __future__ import annotations
 
 import copy
+import functools
+import hashlib
+import os
+import tempfile
 import warnings
 from typing import Optional
 
@@ -68,7 +83,15 @@ from .ops.project import (
     project_fused,
     project_table,
 )
-from .ops.routed_project import BACKWARDS, build_for, resolve, routed_project
+from .ops import routed_project as _routed
+from .ops.routed_project import (
+    BACKWARDS,
+    build_for,
+    load_tables,
+    resolve,
+    routed_project,
+    save_tables,
+)
 from .ops.trace import (
     GridSpec,
     trace_crossings,
@@ -264,44 +287,147 @@ class Operator:
 
             debug_trace(self, debug_los)
 
+        # the rays and the (table-order) voxel ids this operator's tables
+        # cover: all of them here; a rank of the sharded operators
+        # (:mod:`.parallel`) narrows one of the two in its _build
+        self._rows = (0, self._nrays)
+        self._vox = (0, self._flat_size)
+        self._build()
+
+    def _build(self):
+        """Build what the mode computes with, over ``self._rows`` /
+        ``self._vox``."""
         self.lin = self.lens = self._tables = self._fused_btd = None
         self._tables_memo = None
-        if mode == "fused":
-            xs = np.asarray(geom.ray_starts, dtype=np.float64)
-            rays = np.asarray(geom.rays, dtype=np.float64)
+        if self._mode == "fused":
+            xs, rays = self._ray_arrays()
             if self._engine:
-                self._frays = prep_rays(xs, rays, self._view_offsets,
-                                        self._time_off2, self._time_w,
+                self._frays = prep_rays(xs, rays, *self._offsets(),
                                         device=self.device)
                 if self._fused_bwd == "routed" and not self._fused_bwd_lazy:
                     self._ensure_fused_btd()
             else:
-                self._xs = torch.as_tensor(xs, dtype=config.ftype,
+                self._xs = torch.as_tensor(xs, dtype=self.config.ftype,
                                            device=self.device)
-                self._rays = torch.as_tensor(rays, dtype=config.ftype,
+                self._rays = torch.as_tensor(rays, dtype=self.config.ftype,
                                              device=self.device)
-                self._off = (None if self._view_offsets is None else
-                             torch.as_tensor(self._view_offsets,
-                                             device=self.device))
-        elif mode == "routed":
-            lin, lens = self._trace()
-            lin = voxel_order_lin(lin, self.grid.vshape, self._vorder)
-            self._tables = build_for(lin, lens, self._flat_size, self._fwd,
-                                     self._bwd, w_dtype=self._w_dtype)
+                off0 = self._offsets()[0]
+                self._off = (None if off0 is None else
+                             torch.as_tensor(off0, device=self.device))
+        elif self._mode == "routed":
+            self._tables = self._build_tables(self._fwd, self._bwd)
         else:
             self.lin, self.lens = self._trace()
 
     # ------------------------------------------------------------------
+    def _ray_arrays(self):
+        """The starts and directions of the rays ``self._rows``, flat
+        (n, 3) float64."""
+        xs = np.asarray(self.geom.ray_starts, dtype=np.float64)
+        rays = np.asarray(self.geom.rays, dtype=np.float64)
+        shape = np.broadcast_shapes(xs.shape, rays.shape)
+        lo, hi = self._rows
+        return (np.broadcast_to(xs, shape).reshape(-1, 3)[lo:hi].copy(),
+                np.broadcast_to(rays, shape).reshape(-1, 3)[lo:hi].copy())
+
+    def _offsets(self):
+        """The per-ray time offsets of the rays ``self._rows``, flat: the
+        bin offsets, the second bin's and its lerp weights (each ``None``
+        where the operator has none)."""
+        lo, hi = self._rows
+        return tuple(None if a is None else np.reshape(a, -1)[lo:hi]
+                     for a in (self._view_offsets, self._time_off2,
+                               self._time_w))
+
+    def _cache_path(self, kind, key=""):
+        """The cache entry ``torch_<kind>_<hash>`` for the rays (and the
+        voxels) this operator builds, or None without
+        ``SPH_TPU_TRACE_CACHE`` (the module docstring).  The device type
+        is part of the key: the card's trace may differ from the CPU's in
+        the last bits."""
+        d = os.environ.get("SPH_TPU_TRACE_CACHE")
+        if not d:
+            return None
+        h = hashlib.sha256()
+        for a in (self.gs.r_b, self.gs.e_b, self.gs.a_b):
+            h.update(np.asarray(a, np.float64).tobytes())
+        h.update(np.asarray(self.geom.ray_starts, np.float64).tobytes())
+        h.update(np.asarray(self.geom.rays, np.float64).tobytes())
+        h.update(f"{self.config.ftype}/{self.config.itype}/"
+                 f"{_cache_version()}/{self.device.type}/rows{self._rows}/"
+                 f"{key}".encode())
+        os.makedirs(d, exist_ok=True)
+        return os.path.join(d, f"torch_{kind}_{h.hexdigest()[:24]}")
+
     def _trace(self):
-        """The crossing tables ``(lin, lens)`` of every ray, time offsets
-        applied, on the operator's device."""
+        """The crossing tables ``(lin, lens)`` of the rays ``self._rows``,
+        time offsets applied, on the operator's device; read from or
+        written to the trace cache where it is set."""
+        path = self._cache_path("trace")
+        if path is not None:
+            path += ".npz"
+        if path is not None and os.path.exists(path):
+            with np.load(path) as z:
+                lin = torch.from_numpy(z["lin"]).to(self.device)
+                lens = torch.from_numpy(z["lens"]).to(self.device)
+            return self._apply_offsets(lin, lens)
+        xs, rays = self._ray_arrays()
         lin, lens, _, _ = precompute_table(
-            self.gs, np.asarray(self.geom.ray_starts, dtype=np.float64),
-            np.asarray(self.geom.rays, dtype=np.float64),
+            self.gs, xs, rays,
             block=min(self.config.precompute_block_rays,
-                      _round_block(self._nrays)),
+                      _round_block(xs.shape[0])),
             itype=self.config.itype, device=self.device)
+        if path is not None:
+            # a temporary name, then one rename: ranks (threads or
+            # processes) share the directory, and a reader must never see
+            # a partial file
+            fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path),
+                                       suffix=".tmp.npz")
+            try:
+                with os.fdopen(fd, "wb") as fh:
+                    np.savez(fh, lin=lin.cpu().numpy(),
+                             lens=lens.cpu().numpy())
+                os.replace(tmp, path)
+            except BaseException:
+                os.unlink(tmp)
+                raise
         return self._apply_offsets(lin, lens)
+
+    def _build_tables(self, *wrappers):
+        """The tables ``wrappers`` read (:func:`.ops.routed_project.
+        build_for`) over the rays ``self._rows`` and the crossings whose
+        voxel id, in the tables' voxel order, lies in ``self._vox``
+        (renumbered from its start); read from or written to the table
+        cache where it is set."""
+        key = "/".join([*(w.__name__ for w in wrappers),
+                        str(self._w_dtype), self._vorder,
+                        f"vox{self._vox}", self._time_key()])
+        path = self._cache_path("tables", key)
+        if path is not None and os.path.isdir(path):
+            return load_tables(path, self.device)
+        lin, lens = self._trace()
+        lin = voxel_order_lin(lin, self.grid.vshape, self._vorder)
+        v0, v1 = self._vox
+        if (v0, v1) != (0, self._flat_size):
+            keep = (lin >= v0) & (lin < v1)
+            lin = torch.where(keep, lin - v0, 0)
+            lens = torch.where(keep, lens, 0)
+        tables = build_for(lin, lens, v1 - v0, *wrappers,
+                           w_dtype=self._w_dtype)
+        if path is not None:
+            save_tables(path, tables)
+        return tables
+
+    def _time_key(self) -> str:
+        """The time offsets' part of a table key: the offsets live in the
+        tables, so another set of view times must not hit."""
+        if self._view_offsets is None:
+            return "static"
+        h = hashlib.sha256(np.ascontiguousarray(self._view_offsets).tobytes())
+        if self._time_w is not None:
+            h.update(np.ascontiguousarray(self._time_off2).tobytes())
+            h.update(np.ascontiguousarray(self._time_w).tobytes())
+        return f"{self._flat_size}-{h.hexdigest()[:16]}"
 
     def _fused_engine(self) -> bool:
         """Whether fused mode runs the in-kernel-trace engine
@@ -323,31 +449,28 @@ class Operator:
         use: only what ``routed_dense``'s backward reads (the transpose
         for the gather, the ray-major CSR for the scatter)."""
         if self._fused_btd is None:
-            lin, lens = self._trace()
-            self._fused_btd = build_for(lin, lens, self._flat_size,
-                                        self._bwd, w_dtype=self._w_dtype)
+            self._fused_btd = self._build_tables(self._bwd)
         return self._fused_btd
 
     # ------------------------------------------------------------------
     def _apply_offsets(self, lin, lens):
-        """Apply per-view time offsets to a traced ``(lin, lens)`` table.
+        """Apply per-view time offsets to a traced ``(lin, lens)`` table of
+        the rays ``self._rows``.
 
         Binned 4D: add ``t_index·V`` to the voxel ids.  Time-interpolated
         4D (``view_times``): append a second copy of each crossing at the
         ceil bin, splitting each length into ``(1-w)·len`` / ``w·len`` —
         the lerp becomes part of the linear operator itself (bf16 tables
         round each of the two split lengths, as the JAX package does)."""
-        if self._view_offsets is None:
+        off0, off2, w = self._offsets()
+        if off0 is None:
             return lin, lens
         dev, it = lin.device, lin.dtype
-        off0 = torch.as_tensor(self._view_offsets.reshape(-1, 1),
-                               dtype=it, device=dev)
-        if self._time_w is None:
+        off0 = torch.as_tensor(off0.reshape(-1, 1), dtype=it, device=dev)
+        if w is None:
             return lin + off0, lens
-        off1 = torch.as_tensor(self._time_off2.reshape(-1, 1), dtype=it,
-                               device=dev)
-        w = torch.as_tensor(self._time_w.reshape(-1, 1), dtype=lens.dtype,
-                            device=dev)
+        off1 = torch.as_tensor(off2.reshape(-1, 1), dtype=it, device=dev)
+        w = torch.as_tensor(w.reshape(-1, 1), dtype=lens.dtype, device=dev)
         return (torch.cat([lin + off0, lin + off1], dim=-1),
                 torch.cat([lens * (1 - w), lens * w], dim=-1))
 
@@ -370,29 +493,41 @@ class Operator:
             raise ValueError(f"density shape {tuple(density.shape)} does "
                              f"not end with grid shape {gshape}")
         chan = density.shape[: -len(gshape)]
-        flat = density.reshape(*chan, self._flat_size)
-        if self._mode == "fused":
-            out = self._fused(flat)
-        elif self._tables is not None:
-            # one movedim for every channel: the tables' voxel order
-            flat2 = voxel_order_flat(
-                flat.reshape(-1, self._flat_size).to(torch.float32),
-                self.grid.vshape, self._vorder)
-            out = torch.stack([routed_project(f, self._tables, self._bwd,
-                                              self._fwd) for f in flat2])
-        else:
-            out = project_table(flat, self.lin, self.lens)
+        out = self._fwd_local(self._kernel_in(
+            density.reshape(-1, self._flat_size)))
         return out.reshape(tuple(chan) + self._rshape)
 
-    def _fused(self, flat):
+    def _kernel_dtype(self):
+        """The dtype the kernels compute in (float32 for the CUDA kernels'
+        tables and the fused engine), or None for the input's."""
+        if self._tables is not None or self._engine:
+            return torch.float32
+        return None
+
+    def _kernel_in(self, x2):
+        """(C, flat) densities as the forward reads them: in the kernels'
+        dtype and the tables' voxel order."""
+        if self._kernel_dtype() is not None:
+            x2 = x2.to(self._kernel_dtype())
+        return voxel_order_flat(x2, self.grid.vshape, self._vorder)
+
+    def _fwd_local(self, x2):
+        """The forward of the voxels ``self._vox`` (C, n, in the tables'
+        voxel order) to the rays ``self._rows`` (C, m), differentiable: the
+        routed pair, the fused kernel with the backward that ``fused_bwd``
+        resolved to, the blockwise fused path or the table gather."""
+        if self._tables is not None:
+            return torch.stack([routed_project(f, self._tables, self._bwd,
+                                               self._fwd) for f in x2])
+        if self._mode != "fused":
+            return project_table(x2, self.lin, self.lens)
         if not self._engine:
+            n = self._rows[1] - self._rows[0]
             return project_fused(
-                self.gs, flat, self._xs, self._rays, view_offsets=self._off,
-                block=min(self.config.block_rays, _round_block(self._nrays)),
-                itype=self.config.itype).reshape(*flat.shape[:-1], -1)
-        flat2 = flat.reshape(-1, self._flat_size).to(torch.float32)
-        out = torch.stack([self._fused_one(f) for f in flat2])
-        return out.reshape(*flat.shape[:-1], -1)
+                self.gs, x2, self._xs, self._rays, view_offsets=self._off,
+                block=min(self.config.block_rays, _round_block(n)),
+                itype=self.config.itype).reshape(x2.shape[0], -1)
+        return torch.stack([self._fused_one(f) for f in x2])
 
     def _fused_one(self, f):
         """The fused kernel's forward of one flat f32 volume, with the
@@ -417,21 +552,24 @@ class Operator:
         """
         y = torch.as_tensor(line_integrations, device=self.device)
         chan = y.shape[: y.dim() - len(self._rshape)]
-        yf = y.reshape(*chan, self._nrays)
+        out = voxel_order_unflat(self._bwd_local(y.reshape(-1, self._nrays)),
+                                 self.grid.vshape, self._vorder)
+        return out.reshape(*chan, *self.grid.shape)
+
+    def _bwd_local(self, y2):
+        """The adjoint of the rays ``self._rows`` (C, m) to the voxels
+        ``self._vox`` (C, n, in the tables' voxel order): the routed
+        backward kernel, or the table scatter."""
         tables = self._tables
         if self._engine and self._fused_bwd == "routed":
             # the routed backward's tables, built here at first use
             tables = self._ensure_fused_btd()
         if tables is not None:
-            yf2 = yf.reshape(-1, self._nrays).to(torch.float32)
-            out = voxel_order_unflat(
-                torch.stack([self._bwd(tables, v) for v in yf2]),
-                self.grid.vshape, self._vorder)
-        else:
-            lin, lens = self._lin_lens()
-            out = backproject_table(yf, lin, lens,
-                                    volume_size=self._flat_size)
-        return out.reshape(*chan, *self.grid.shape)
+            return torch.stack([self._bwd(tables, v)
+                                for v in y2.to(torch.float32)])
+        lin, lens = self._lin_lens()
+        return backproject_table(y2, lin, lens,
+                                 volume_size=self._vox[1] - self._vox[0])
 
     def _lin_lens(self):
         """``(lin, lens)`` for the table adjoint; fused mode traces them
@@ -471,14 +609,14 @@ class Operator:
         another instance needs no routing metadata of this one (the JAX
         package builds its fused backward first, for that metadata); the
         sizes are checked instead."""
+        want = (self._rows[1] - self._rows[0], self._vox[1] - self._vox[0])
         for key in ("dt", "fbtd"):
             t = payload.get(key)
-            if t is not None and (t.n_rays, t.n_vox) != (self._nrays,
-                                                           self._flat_size):
+            if t is not None and (t.n_rays, t.n_vox) != want:
                 raise ValueError(
                     f"payload {key!r} has {t.n_rays} rays and {t.n_vox} "
-                    f"voxels; this operator {self._nrays} and "
-                    f"{self._flat_size}")
+                    f"voxels; this operator's tables {want[0]} and "
+                    f"{want[1]}")
         new = copy.copy(self)
         if "dt" in payload:
             new._tables = payload["dt"]
@@ -546,6 +684,33 @@ class Operator:
 
         return render_wireframes(
             frames, bound=np.abs(geom.ray_starts).max(), ax=ax, path=path)
+
+
+# the modules whose code decides what a trace or a table build writes
+_CACHE_SOURCES = ("operator.py", "ops/intersect.py", "ops/trace.py",
+                  "ops/project.py", "ops/routed_project.py")
+
+
+@functools.lru_cache(maxsize=None)
+def _sources_digest() -> str:
+    h = hashlib.sha256()
+    root = os.path.dirname(os.path.abspath(__file__))
+    for name in _CACHE_SOURCES:
+        with open(os.path.join(root, name), "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()
+
+
+def _cache_version() -> str:
+    """The cache entries' version, derived from the code: a digest of the
+    sources that trace and build (:data:`_CACHE_SOURCES`) and the build
+    constants of :mod:`.ops.routed_project` as they stand at the call
+    (``HIST_SHARE``, ``WIN_*``, ...: the tables bake them in, and tools
+    retune them at run time), so an entry that other code or other
+    constants made is never read."""
+    consts = sorted((k, v) for k, v in vars(_routed).items()
+                    if k.isupper() and isinstance(v, (bool, int, float, str)))
+    return f"{_sources_digest()}/{consts}"
 
 
 def _round_block(n: int) -> int:

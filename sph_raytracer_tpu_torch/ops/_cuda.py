@@ -11,7 +11,10 @@ when it fails.
 Each C entry point takes device pointers and the stream as ``void*`` and
 sizes as ``int``, and returns ``cudaGetLastError()`` right after its
 launch; :func:`launch` raises when that is not 0 and otherwise adds one to
-the entry's count in :data:`LAUNCHES`.  A kernel templated on its weight
+the entry's count in :data:`LAUNCHES`.  The build and the count are each
+under a lock, so ranks that run as threads of one process (the sharded
+operators' tests and ``chip_smoke.py``) build once and lose no count.  A
+kernel templated on its weight
 type has one entry a type: ``<name>`` reads float32 weights and
 ``<name>_bf16`` bfloat16 ones (``routed_w_dtype='bf16'``), each counted on
 its own.
@@ -24,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -77,11 +81,14 @@ _ENTRIES.update({n: _ENTRIES[n[:-len("_bf16")]] for n in BF16_ENTRIES})
 # kernel launches per wrapper; each wrapper adds one where it launches its
 # kernel and nowhere else
 LAUNCHES = {name: 0 for name in _ENTRIES}
+_COUNT_LOCK = threading.Lock()
+_BUILD_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:
@@ -94,14 +101,19 @@ def _nvcc() -> str:
                        "kernels are built from source at first use")
 
 
-@functools.lru_cache(maxsize=None)
 def load_library():
     """Build (once per source hash) and load the kernels' shared library.
 
     Returns ``(lib, build_log)``; ``build_log`` holds each nvcc call's
     seconds and output (``-Xptxas -v`` register and spill lines) when this
-    call built it.
+    call built it.  Threads that ask at once wait for one build.
     Raises with the compiler's output when the build fails."""
+    with _BUILD_LOCK:
+        return _load_library()
+
+
+@functools.lru_cache(maxsize=None)
+def _load_library():
     h = hashlib.sha256()
     for src in SOURCES + HEADERS:
         with open(src, "rb") as fh:
@@ -160,4 +172,5 @@ def launch(name, tensors, ints):
     if rc != 0:
         msg = lib.routed_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
-    LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1

@@ -350,6 +350,8 @@ def fused_fwd(gs: GridSpec, rays: FusedRays, d):
     if rays.w is not None:
         _check(rays.w, (R,), torch.float32, "w", dev)
     y = torch.empty(R, dtype=torch.float32, device=dev)
+    if R == 0:  # a rank's empty share (..parallel): CUDA refuses the grid
+        return y
     launch("fused_fwd",
            (rays.xs, rays.dirs, rays.off0, rays.off1, rays.w,
             boundary_table(gs, dev), d, y),

@@ -60,7 +60,9 @@ window engine on f32 tables alone.  Every wrapper raises ``ValueError`` on
 a weight dtype it does not take, on the CPU too.
 
 :func:`resolve` maps a ``TraceConfig`` to its (forward, backward) pair and
-:func:`build_for` builds the tables that pair reads.
+:func:`build_for` builds the tables that pair reads; :func:`save_tables` /
+:func:`load_tables` keep a table set on disk (the operators' table cache,
+``SPH_TPU_TRACE_CACHE``).
 
 A wrapper runs the plain version only because the tensor it was given
 lies on the CPU; for a CUDA tensor it launches the kernel or raises.  The
@@ -69,9 +71,14 @@ use (:func:`load_library`, in :mod:`._cuda`); there is no fallback.
 """
 from __future__ import annotations
 
+import json
+import os
+import shutil
+import tempfile
 import warnings
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ._cuda import LAUNCHES, launch, load_library, reset_launches
@@ -100,6 +107,8 @@ __all__ = [
     "build_tables",
     "build_window_tables",
     "build_for",
+    "save_tables",
+    "load_tables",
     "routed_fwd",
     "routed_bwd_gather",
     "routed_bwd_scatter",
@@ -551,6 +560,17 @@ def _check(x, n, what, tables):
 # wrappers
 # ---------------------------------------------------------------------------
 
+def _launch(entry, t, out, tensors, ints):
+    """Launch ``entry`` into ``out`` and return it.  With no crossing or no
+    output the result is zeros, and nothing is launched or counted: CUDA
+    refuses a launch with an empty grid, and a rank of the sharded operators
+    (:mod:`..parallel`) may hold no ray or no live voxel."""
+    if t.nnz == 0 or out.numel() == 0:
+        return out.zero_()
+    launch(entry, tensors, ints)
+    return out
+
+
 # routed_bwd_scatter's CTA: a tile of SCATTER_TILE consecutive rays sums its
 # crossings by voxel in a shared table of SCATTER_SLOTS (key, value) slots
 # (a power of two; 64 KB) before one global atomic a distinct voxel.  At the
@@ -681,8 +701,7 @@ def routed_fwd(t: RoutedTables, d):
     d = _check(d, t.n_vox, "density", t)
     _aligned(t, "col", "val")
     y = torch.empty(t.n_rays, dtype=torch.float32, device=d.device)
-    launch(entry, (t.row_ptr, t.col, t.val, d, y), (t.n_rays,))
-    return y
+    return _launch(entry, t, y, (t.row_ptr, t.col, t.val, d, y), (t.n_rays,))
 
 
 def routed_bwd_gather(t: RoutedTables, dy):
@@ -696,8 +715,8 @@ def routed_bwd_gather(t: RoutedTables, dy):
     dy = _check(dy, t.n_rays, "dy", t)
     _aligned(t, "ray", "valT")
     dD = torch.empty(t.n_vox, dtype=torch.float32, device=dy.device)
-    launch(entry, (t.vox_ptr, t.ray, t.valT, dy, dD), (t.n_vox,))
-    return dD
+    return _launch(entry, t, dD, (t.vox_ptr, t.ray, t.valT, dy, dD),
+                   (t.n_vox,))
 
 
 def routed_bwd_scatter(t: RoutedTables, dy, counts=None):
@@ -722,9 +741,8 @@ def routed_bwd_scatter(t: RoutedTables, dy, counts=None):
     if counts is not None and counts.device != dy.device:
         raise ValueError(f"counts on {counts.device}, dy on {dy.device}")
     dD = torch.empty(t.n_vox, dtype=torch.float32, device=dy.device)
-    launch(entry, (t.row_ptr, t.col, t.val, dy, dD, counts),
-           (t.n_rays, t.n_vox, SCATTER_TILE, SCATTER_SLOTS))
-    return dD
+    return _launch(entry, t, dD, (t.row_ptr, t.col, t.val, dy, dD, counts),
+                   (t.n_rays, t.n_vox, SCATTER_TILE, SCATTER_SLOTS))
 
 
 def routed_fwd_dense(t: RoutedTables, d):
@@ -738,9 +756,8 @@ def routed_fwd_dense(t: RoutedTables, d):
         return routed_fwd_dense_ref(t, d)
     d = _check(d, t.n_vox, "density", t)
     y = torch.empty(t.n_rays, dtype=torch.float32, device=d.device)
-    launch(entry, (t.vox_ptr, t.ray, t.valT, d, y),
-           (t.n_vox, t.n_rays, DENSE_WIDTH, DENSE_SPREAD))
-    return y
+    return _launch(entry, t, y, (t.vox_ptr, t.ray, t.valT, d, y),
+                   (t.n_vox, t.n_rays, DENSE_WIDTH, DENSE_SPREAD))
 
 
 def routed_fwd_hist(t: RoutedTables, d):
@@ -763,9 +780,8 @@ def routed_fwd_hist(t: RoutedTables, d):
     _aligned(t, "col", "val")
     cut = hist_cut(t) if t.cut is None else t.cut
     y = torch.empty(t.n_rays, dtype=torch.float32, device=d.device)
-    launch(entry, (t.row_ptr, t.col, t.val, cut, d, y),
-           (t.n_rays, t.nnz, HIST_SHARE))
-    return y
+    return _launch(entry, t, y, (t.row_ptr, t.col, t.val, cut, d, y),
+                   (t.n_rays, t.nnz, HIST_SHARE))
 
 
 def routed_fwd_window(t: WindowTables, d):
@@ -778,12 +794,11 @@ def routed_fwd_window(t: WindowTables, d):
     d = _check(d, t.n_vox, "density", t)
     _aligned(t, "loc", "val")
     y = torch.empty(t.n_rays, dtype=torch.float32, device=d.device)
-    launch("routed_fwd_window",
-           (t.tile_ptr, t.ckey, t.cptr, t.loc, t.val, t.piece_ptr,
-            t.piece_chunk, d, y),
-           (t.n_win, t.n_rays, len(t.ckey), t.n_pieces, t.G, t.W,
-            WIN_FWD_THREADS))
-    return y
+    return _launch("routed_fwd_window", t, y,
+                   (t.tile_ptr, t.ckey, t.cptr, t.loc, t.val, t.piece_ptr,
+                    t.piece_chunk, d, y),
+                   (t.n_win, t.n_rays, len(t.ckey), t.n_pieces, t.G, t.W,
+                    WIN_FWD_THREADS))
 
 
 def routed_bwd_window(t: WindowTables, dy):
@@ -794,11 +809,10 @@ def routed_bwd_window(t: WindowTables, dy):
         return routed_bwd_window_ref(t, dy)
     dy = _check(dy, t.n_rays, "dy", t)
     dD = torch.empty(t.n_vox, dtype=torch.float32, device=dy.device)
-    launch("routed_bwd_window",
-           (t.win_ptr, t.item_ptr, t.item_win, t.bwd_order, t.ckey, t.cptr,
-            t.loc, t.val, dy, dD),
-           (t.n_win, t.n_vox, t.n_items, t.G, t.W))
-    return dD
+    return _launch("routed_bwd_window", t, dD,
+                   (t.win_ptr, t.item_ptr, t.item_win, t.bwd_order, t.ckey,
+                    t.cptr, t.loc, t.val, dy, dD),
+                   (t.n_win, t.n_vox, t.n_items, t.G, t.W))
 
 
 def routed_fwd_densew(t: WindowTables, d):
@@ -810,11 +824,10 @@ def routed_fwd_densew(t: WindowTables, d):
         return routed_fwd_densew_ref(t, d)
     d = _check(d, t.n_vox, "density", t)
     y = torch.empty(t.n_rays, dtype=torch.float32, device=d.device)
-    launch(entry,
-           (t.item_ptr, t.item_win, t.bwd_order, t.ckey, t.cptr, t.loc, t.val,
-            d, y),
-           (t.n_win, t.n_rays, t.n_vox, t.n_items, t.G, t.W))
-    return y
+    return _launch(entry, t, y,
+                   (t.item_ptr, t.item_win, t.bwd_order, t.ckey, t.cptr,
+                    t.loc, t.val, d, y),
+                   (t.n_win, t.n_rays, t.n_vox, t.n_items, t.G, t.W))
 
 
 # TraceConfig.routed_dense -> the banded engine's forward and backward
@@ -869,6 +882,67 @@ def build_for(lin, lens, n_vox: int, *wrappers,
     t = build_tables(lin, lens, n_vox, transpose="transpose" in reads,
                      csr=bool(reads & {"csr", "csr+cut"}), w_dtype=w_dtype)
     return t._replace(cut=hist_cut(t)) if "csr+cut" in reads else t
+
+
+# ---------------------------------------------------------------------------
+# the table cache
+# ---------------------------------------------------------------------------
+
+_TABLE_KINDS = {"RoutedTables": RoutedTables, "WindowTables": WindowTables}
+
+
+def save_tables(path: str, t) -> None:
+    """Write a table set (:class:`RoutedTables` or :class:`WindowTables`)
+    as the directory ``path``: one ``.npy`` file a tensor (bfloat16 as its
+    int16 bits) and ``meta.json`` (the class, its sizes, each tensor's
+    dtype).  The directory is written under a temporary name and installed
+    with one ``os.replace``, so a reader finds it whole or not at all; a
+    writer that lost the race to another rank or process drops its own."""
+    parent = os.path.dirname(os.path.abspath(path))
+    os.makedirs(parent, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=parent,
+                           prefix=os.path.basename(path) + ".tmp-")
+    try:
+        meta = {"kind": type(t).__name__, "tensors": {}, "ints": {},
+                "none": []}
+        for name, v in zip(t._fields, t):
+            if v is None:  # a half the pair does not read
+                meta["none"].append(name)
+            elif isinstance(v, torch.Tensor):
+                meta["tensors"][name] = str(v.dtype).split(".")[-1]
+                if v.dtype == torch.bfloat16:
+                    v = v.view(torch.int16)
+                np.save(os.path.join(tmp, f"{name}.npy"),
+                        v.detach().cpu().numpy())
+            else:
+                meta["ints"][name] = int(v)
+        with open(os.path.join(tmp, "meta.json"), "w") as fh:
+            json.dump(meta, fh)
+        try:
+            os.replace(tmp, path)
+        except OSError:
+            if not os.path.isdir(path):
+                raise
+            shutil.rmtree(tmp, ignore_errors=True)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def load_tables(path: str, device):
+    """Read a table set written by :func:`save_tables` onto ``device``: the
+    arrays are memory-mapped (copy on write), so on the CPU the tensors
+    page in at first use and on a card they are copied once."""
+    with open(os.path.join(path, "meta.json")) as fh:
+        meta = json.load(fh)
+    fields = dict(meta["ints"], **dict.fromkeys(meta["none"]))
+    for name, dtype in meta["tensors"].items():
+        a = torch.from_numpy(np.load(os.path.join(path, f"{name}.npy"),
+                                     mmap_mode="c"))
+        if dtype == "bfloat16":
+            a = a.view(torch.bfloat16)
+        fields[name] = a.to(device)
+    return _TABLE_KINDS[meta["kind"]](**fields)
 
 
 class _RoutedProject(torch.autograd.Function):

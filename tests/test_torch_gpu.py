@@ -604,3 +604,155 @@ def test_voxel_order_r_matches_a(cuda):
         assert torch.equal(got[same], want[same])
         torch.testing.assert_close(got, want, rtol=1e-5,
                                    atol=1e-6 * float(want.abs().max()))
+
+
+def _sharded_problem(device):
+    grid = prt.SphericalGrid(shape=(12, 10, 10))
+    geom = sum(
+        prt.ConeRectGeom((8, 9), pos=(2 * np.cos(t), 2 * np.sin(t), 0.4),
+                         fov=(45, 45))
+        for t in np.linspace(0, 2 * np.pi, 4, endpoint=False))
+    gen = torch.Generator().manual_seed(11)
+    x = torch.rand(tuple(grid.shape), generator=gen).to(device)
+    return grid, geom, x, torch.rand(tuple(geom.shape),
+                                     generator=gen).to(device)
+
+
+def _step(op, x, t):
+    v = x.clone().requires_grad_(True)
+    img = op(v)
+    (g,) = torch.autograd.grad(torch.mean((img - t) ** 2), v)
+    return img.detach(), g, op.T(t)
+
+
+def test_sharded_nccl_world1_bitwise(cuda, tmp_path):
+    """A one-rank NCCL group (``file://`` store): ``ShardedOperator`` at
+    'auto', 'off' and fused, and ``VolShardedOperator``, bitwise equal to
+    the unsharded operator (one rank's tables are the whole table set, and
+    a one-rank sum is the identity)."""
+    from sph_raytracer_tpu_torch.parallel import (ShardedOperator,
+                                                  VolShardedOperator,
+                                                  distributed_init, make_mesh)
+
+    import torch.distributed as dist
+
+    distributed_init(f"file://{tmp_path}/store", num_processes=1,
+                     process_id=0)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh()
+        grid, geom, x, t = _sharded_problem(cuda)
+        for cls, kw in ((ShardedOperator, dict(mode="routed")),
+                        (ShardedOperator, dict(config=prt.TraceConfig(
+                            routed_dense="off"))),
+                        (ShardedOperator, dict(mode="fused")),
+                        (VolShardedOperator, {})):
+            ref = prt.Operator(grid, geom, device=cuda, **kw)
+            sop = cls(grid, geom, mesh=mesh, **kw)
+            before = dict(rp.LAUNCHES)
+            got = _step(sop, x, t)
+            assert sum(rp.LAUNCHES.values()) > sum(before.values())
+            for a, b in zip(got, _step(ref, x, t)):
+                if ref._bwd is rp.routed_bwd_scatter and a.shape != t.shape:
+                    # the scatter's atomics add in a run-to-run order
+                    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+                else:
+                    assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_empty_shard_launches_nothing(cuda):
+    """Tables with no crossing, and a fused call with no ray: every wrapper
+    returns zeros (or nothing) and launches nothing (CUDA refuses an empty
+    grid); four thread ranks over three rays on the card (gloo, CUDA
+    tensors) match the unsharded operator's image and ``.T`` and do not
+    hang.  (Not the gradient: the autograd engine runs a card's backward on
+    one thread of its own, where thread ranks' collectives would wait on
+    each other; ``chip_smoke.py`` phase 19 runs such ranks as processes.)"""
+    import datetime
+    import threading
+
+    import torch.distributed as dist
+
+    from sph_raytracer_tpu_torch.parallel import ShardedOperator
+    from sph_raytracer_tpu_torch.parallel.mesh import Mesh
+
+    lin = torch.zeros((5, 4), dtype=torch.int32, device=cuda)
+    lens = torch.zeros((5, 4), device=cuda)
+    d, dy = torch.rand(30, device=cuda), torch.rand(5, device=cuda)
+    before = dict(rp.LAUNCHES)
+    for rows in (slice(None), slice(0, 0)):
+        t = rp.build_tables(lin[rows], lens[rows], 30)
+        w = rp.build_window_tables(lin[rows], lens[rows], 30)
+        n = t.n_rays
+        for kern, tab, x in ((rp.routed_fwd, t, d),
+                             (rp.routed_fwd_dense, t, d),
+                             (rp.routed_fwd_hist, t, d),
+                             (rp.routed_bwd_gather, t, dy[:n]),
+                             (rp.routed_bwd_scatter, t, dy[:n]),
+                             (rp.routed_fwd_window, w, d),
+                             (rp.routed_bwd_window, w, dy[:n]),
+                             (rp.routed_fwd_densew, w, d)):
+            assert not kern(tab, x).any()
+    gs = GridSpec.from_grid(prt.SphericalGrid(shape=(4, 4, 4)))
+    rays = fp.prep_rays(np.zeros((0, 3)), np.ones((0, 3)), device=cuda)
+    assert fp.fused_fwd(gs, rays, torch.rand(64, device=cuda)).shape == (0,)
+    torch.cuda.synchronize()
+    assert rp.LAUNCHES == before
+
+    grid = prt.SphericalGrid(shape=(5, 5, 5))
+    geom = prt.ViewGeom(np.array([[2.0, 0.3, 0.2], [2.0, -0.2, 0.1],
+                                  [0.3, 2.0, -0.2]]),
+                        np.array([[-1.0, 0.0, 0.0], [-1.0, 0.1, 0.0],
+                                  [0.0, -1.0, 0.1]]))
+    x = torch.rand((5, 5, 5), device=cuda)
+    t = torch.rand(3, device=cuda)
+    ref = prt.Operator(grid, geom, mode="routed", device=cuda)
+    want = (ref(x), ref.T(t))
+    store, out = dist.HashStore(), [None] * 4
+
+    def body(r):
+        pg = dist.ProcessGroupGloo(dist.PrefixStore("e", store), r, 4,
+                                   datetime.timedelta(seconds=60))
+        sop = ShardedOperator(grid, geom, mode="routed",
+                              mesh=Mesh(pg, r, 4, cuda))
+        out[r] = (sop._rows, (sop(x), sop.T(t)))
+
+    threads = [threading.Thread(target=body, args=(r,)) for r in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(90)
+    assert not any(th.is_alive() for th in threads)
+    assert out[3][0] == (3, 3)
+    for _, got in out:
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+def test_table_cache_warm_hit_bitwise(cuda, tmp_path, monkeypatch):
+    """A warm table-cache hit on the card traces nothing and gives bitwise
+    the cold build's tables (and, through ``routed_fwd``, whose sums run in
+    a fixed order, bitwise the image; the window forward's atomics add in a
+    run-to-run order)."""
+    from sph_raytracer_tpu_torch import operator as op_mod
+
+    monkeypatch.setenv("SPH_TPU_TRACE_CACHE", str(tmp_path))
+    grid, geom, x, t = _sharded_problem(cuda)
+    for cfg in (prt.TraceConfig(), prt.TraceConfig(routed_banded=False),
+                prt.TraceConfig(routed_w_dtype="bf16")):
+        cold = prt.Operator(grid, geom, device=cuda, config=cfg)
+        with monkeypatch.context() as m:
+            m.setattr(op_mod, "precompute_table", None)  # a call raises
+            warm = prt.Operator(grid, geom, device=cuda, config=cfg)
+        for a, b in zip(cold._tables, warm._tables):
+            assert (a is None and b is None) or (
+                a == b if isinstance(a, int) else
+                a.device == b.device and a.dtype == b.dtype
+                and torch.equal(a, b))
+        if cold._fwd is rp.routed_fwd:
+            assert torch.equal(cold(x), warm(x))
+        else:
+            torch.testing.assert_close(warm(x), cold(x), rtol=1e-5,
+                                       atol=1e-6)

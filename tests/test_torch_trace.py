@@ -167,9 +167,11 @@ def test_ranked_config_runs_sorted_trace():
 
 
 def test_import_loads_no_jax():
-    """Importing the port loads no jax and no module of the JAX package."""
+    """Importing the port (its ``parallel`` package too) loads no jax and
+    no module of the JAX package."""
     code = (
         "import sys, sph_raytracer_tpu_torch\n"
+        "import sph_raytracer_tpu_torch.parallel\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib')\n"
         "       or m.startswith(('jax.', 'jaxlib.'))\n"
         "       or (m.split('.')[0] == 'sph_raytracer_tpu')]\n"
