@@ -170,6 +170,28 @@ Phases (any failure raises and exits non-zero):
    and here, the warm tables bitwise the cold's, no trace on a hit; the
    phase's peak device memory.
 
+20. the examples (``example_checks``): each module of
+   ``sph_raytracer_tpu_torch.examples`` run by its ``run()`` at the JAX
+   script's defaults, counters reset just before and read just after,
+   its setup and run seconds printed and every kernel its path needs
+   launched; held against ``mode='precomputed'`` on the card (the plain
+   table path, which launches nothing) at the examples' own shapes:
+   images (``single_vantage``, ``dynamic_measurements`` binned and
+   ``view_times``, ``aot_serving``) at rtol 1e-4, the served image
+   bitwise the live one; the gradient of a seeded loss through each
+   example's operator (``routed_bwd_gather``: static, sph_harm, poisson,
+   aot_serving live and served, the sharded two) at rtol 1e-4 (the
+   fused one with knife-edge voxels allowed, as phase 18's previews); the
+   ``preview3d`` frames of ``static_retrieval`` and
+   ``dynamic_measurements`` (``fused_fwd``) against the same preview at
+   ``'precomputed'``; ``static_retrieval``'s loss falls,
+   ``sph_harm_retrieval``'s rel < 0.2, ``poisson_retrieval``'s ML-EM
+   error below CGNR's and 0.2; the sharded two on one rank (the group
+   their ``main()`` makes): the image and a gradient within 1e-5 of the
+   unsharded operator's; ``memory_usage``'s routed-table estimate at the
+   flagship at least the built tables' bytes; ``plot()`` only where
+   matplotlib is installed.
+
 Before the last line: the card's name and power limit, then the
 ``{"kernels": [...]}`` line (15 kernels: 9 f32, 6 bf16); the last line is
 ``{"ok": true, "device": {...}}``.  The run's wall seconds, and its
@@ -223,20 +245,21 @@ def check_close(name, got, want, rtol, atol):
     return err
 
 
-def check_rays(name, got, want, rtol, atol, allow_frac):
-    """Per-ray check that lets at most ``allow_frac`` of the rays miss the
-    tolerance (knife-edge labels); prints how many did and by how much."""
+def check_rays(name, got, want, rtol, atol, allow_frac, unit="rays"):
+    """Per-ray check that lets at most ``allow_frac`` of the rays (or of
+    the ``unit``) miss the tolerance (knife-edge labels); prints how many
+    did and by how much."""
     diff = (got.double() - want.double()).abs()
     bad = diff > atol + rtol * want.double().abs()
     n_bad, allow = int(bad.sum()), int(allow_frac * got.numel())
     err = float(diff.max())
     worst = float(diff[bad].max()) if n_bad else 0.0
     log(f"[check] {name}: max_abs_err={err:.3e}; {n_bad} of {got.numel()} "
-        f"rays outside rtol={rtol}, atol={atol:.3e} (largest miss "
+        f"{unit} outside rtol={rtol}, atol={atol:.3e} (largest miss "
         f"{worst:.3e}, at most {allow} allowed) "
         f"{'ok' if n_bad <= allow else 'FAIL'}")
     if n_bad > allow:
-        raise AssertionError(f"{name}: {n_bad} rays outside the tolerance")
+        raise AssertionError(f"{name}: {n_bad} {unit} outside the tolerance")
     return err
 
 
@@ -1518,6 +1541,253 @@ def sharded_checks(torch, prt, rp, dev, timer, label, spec, flagship):
     return total
 
 
+# phase 20: each example module (sph_raytracer_tpu_torch/examples) at the
+# JAX script's defaults, and the kernels its path must launch on the card
+EXAMPLE_KERNELS = {
+    "single_vantage": ("routed_fwd",),
+    "static_retrieval": ("routed_fwd", "routed_bwd_gather", "fused_fwd"),
+    "dynamic_measurements": ("routed_fwd", "fused_fwd"),
+    "sph_harm_retrieval": ("routed_fwd", "routed_bwd_gather"),
+    "poisson_retrieval": ("routed_fwd", "routed_bwd_gather"),
+    "aot_serving": ("routed_fwd", "routed_bwd_gather"),
+    "memory_usage": (),
+    "multichip_scaling": ("fused_fwd", "routed_bwd_gather"),
+    "volume_sharded": ("routed_fwd", "routed_bwd_gather"),
+}
+
+
+def example_checks(torch, prt, rp, dev, flagship, label):
+    """Phase 20: each module of ``sph_raytracer_tpu_torch.examples`` run by
+    its ``run()`` at the JAX script's defaults, the launch counters set to
+    0 just before and read just after, every kernel of
+    :data:`EXAMPLE_KERNELS` launched at least once on the card; returns
+    the launches summed by kernel.  Checks, each against the plain table
+    path (the same grid and geometry at ``mode='precomputed'`` on the
+    card, which must launch no kernel):
+
+    * images (``single_vantage``, ``dynamic_measurements`` binned and
+      ``view_times``, ``aot_serving``) at rtol 1e-4; ``aot_serving``'s
+      served image bitwise the live one;
+    * gradients, at the example's own operator (``routed_bwd_gather``),
+      of ``mean((op(x) - t)²)`` at a seeded target ``t`` (``static``,
+      ``sph_harm``, ``poisson_retrieval``, ``aot_serving`` live and
+      served, the two sharded examples) at rtol 1e-4, the fused
+      ``multichip_scaling``'s with knife-edge voxels allowed as in
+      phase 18;
+    * ``preview3d(mode='fused')`` frames (``fused_fwd``) of
+      ``static_retrieval`` (truth and result) and ``dynamic_measurements``
+      against ``preview3d(mode='precomputed')`` on the same inputs, rtol
+      1e-4 with knife-edge rays allowed as in phase 18;
+    * retrievals: the loss falls in ``static_retrieval``; ``rel < 0.2`` in
+      ``sph_harm_retrieval``; ``em < cgr`` and ``em < 0.2`` in
+      ``poisson_retrieval``;
+    * the sharded examples, one rank (``examples._common.process_group``,
+      the group their ``main()`` makes): the image, and the gradient at a
+      second point, within 1e-5 of the unsharded operator's;
+    * ``memory_usage``: its estimate of the routed tables at the rays and
+      grid of ``flagship`` (a routed ``Operator``) at least the bytes of
+      its tables.
+
+    ``plot()`` is called, into a temporary directory, only where
+    matplotlib is installed.  ``label`` is the card's name and power
+    limit."""
+    import importlib
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from sph_raytracer_tpu_torch import examples
+    from sph_raytracer_tpu_torch.examples._common import (process_group,
+                                                          step_fn)
+    from sph_raytracer_tpu_torch.parallel import make_mesh
+    from sph_raytracer_tpu_torch.plotting import preview3d
+
+    mods = {n: importlib.import_module(f"sph_raytracer_tpu_torch.examples."
+                                       f"{n}") for n in examples.__all__}
+    plots = importlib.util.find_spec("matplotlib") is not None
+    outdir = tempfile.mkdtemp()
+    total, seconds = {}, {}
+    gen = torch.Generator().manual_seed(20)
+
+    def counted(name, **kw):
+        """``run(**kw)`` of example ``name`` at its defaults, counted."""
+        torch.cuda.synchronize()
+        rp.reset_launches()
+        res = mods[name].run(**kw)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in rp.LAUNCHES.items() if v}
+        seconds[name] = (res["setup_s"], res["run_s"])
+        log(f"[example {name}] setup {res['setup_s']:.3f} s, run "
+            f"{res['run_s']:.3f} s, launches {got} ({label})")
+        missing = [k for k in EXAMPLE_KERNELS[name] if not got.get(k)]
+        if missing:
+            raise AssertionError(f"example {name} launched no {missing}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        if plots:
+            for path in mods[name].plot(res, outdir):
+                log(f"[example {name}] plot wrote {os.path.basename(path)} "
+                    f"({os.path.getsize(path)} B)")
+        return res
+
+    def plain(name, make):
+        """``make()`` on the plain table path: no kernel may launch."""
+        torch.cuda.synchronize()
+        rp.reset_launches()
+        out = make()
+        torch.cuda.synchronize()
+        if any(rp.LAUNCHES.values()):
+            raise AssertionError(f"{name}: the table path launched "
+                                 f"{dict(rp.LAUNCHES)}")
+        return out
+
+    def against_plain(name, o, x, image=None, grads=(), knife=0.0, **kw):
+        """``image`` (of ``x`` through ``o``) and each of ``grads`` (label,
+        ``f(x, t)`` -> the gradient of ``mean((o(x) - t)²)``) against
+        ``o``'s grid and geometry at ``mode='precomputed'``, rtol 1e-4.
+        ``knife``: the share of voxels whose gradient may miss it, where
+        ``o`` is fused (its own f32 trace labels a knife-edge segment
+        apart from the tables', as in phase 18's previews)."""
+        def run_plain():
+            ref = prt.Operator(o.grid, o.geom, mode="precomputed",
+                               device=dev, **kw)
+            with torch.no_grad():
+                want = ref(x)
+            t = torch.rand(tuple(want.shape), generator=gen).to(dev)
+            return want, t, (step_fn(ref, t)(x)[1] if grads else None)
+
+        want, t, want_g = plain(name, run_plain)
+        if image is not None:
+            check_close(f"example {name} image vs mode='precomputed'", image,
+                        want, 1e-4, 1e-4 * float(want.abs().max()))
+        for what, fn in grads:
+            label = f"example {name} {what} gradient vs mode='precomputed'"
+            atol = 1e-4 * float(want_g.abs().max())
+            if knife:
+                check_rays(label, fn(x, t), want_g, 1e-4, atol, knife,
+                           unit="voxels")
+            else:
+                check_close(label, fn(x, t), want_g, 1e-4, atol)
+
+    def live(o, what="live"):
+        return (what, lambda x, t: step_fn(o, t)(x)[1])
+
+    def preview_against_plain(name, frames, vol, grid, **kw):
+        """``preview3d`` frames (``mode='fused'``) against the same call at
+        ``mode='precomputed'``; knife-edge rays allowed as in phase 18."""
+        want = torch.from_numpy(plain(name, lambda: preview3d(
+            vol, grid, shape=frames.shape[1:], mode="precomputed",
+            device=dev, **kw)))
+        got = torch.from_numpy(frames)
+        filled = (want != 0) | (got != 0)
+        check_rays(f"example {name} preview3d fused vs mode='precomputed', "
+                   f"filled pixels", got[filled], want[filled], 1e-4,
+                   1e-4 * float(want.abs().max()), KNIFE_ROUTED)
+
+    res = counted("single_vantage", device=dev)
+    against_plain("single_vantage", res["op"], res["x"], image=res["image"])
+    del res
+
+    res = counted("static_retrieval", device=dev)
+    hist = next(iter(res["losses"].values()))
+    log(f"[example static_retrieval] SquareLoss {hist[0]:.6g} -> "
+        f"{hist[-1]:.6g} in {len(hist)} iterations")
+    if not (np.all(np.isfinite(hist)) and hist[-1] < hist[0]
+            and bool(torch.isfinite(res["coeffs"]).all())):
+        raise AssertionError("static_retrieval: the loss did not fall")
+    against_plain("static_retrieval", res["op"], res["x"],
+                  grads=[live(res["op"])])
+    grid = res["op"].grid
+    preview_against_plain("static_retrieval truth", res["preview_truth"],
+                          res["x"], grid)
+    preview_against_plain("static_retrieval result", res["preview_coeffs"],
+                          res["coeffs"], grid)
+    del res
+
+    res = counted("dynamic_measurements", device=dev)
+    against_plain("dynamic_measurements binned", res["op"], res["x"],
+                  image=res["meas"])
+    against_plain("dynamic_measurements view_times", res["op_ct"], res["x"],
+                  image=res["meas_ct"], view_times=res["times"])
+    preview_against_plain("dynamic_measurements", res["preview"], res["x"],
+                          res["op"].grid, azim=-45, orbit=False)
+    del res
+
+    res = counted("sph_harm_retrieval", device=dev)
+    log(f"[example sph_harm_retrieval] relative volume error "
+        f"{res['rel']:.4f} (< 0.2)")
+    if not res["rel"] < 0.2:
+        raise AssertionError(f"sph_harm_retrieval: rel {res['rel']}")
+    against_plain("sph_harm_retrieval", res["op"], res["truth"],
+                  grads=[live(res["op"])])
+    del res
+
+    res = counted("poisson_retrieval", device=dev)
+    log(f"[example poisson_retrieval] ML-EM relative volume error "
+        f"{res['em']:.3f}, CGNR {res['cgr']:.3f} (em < cgr, em < 0.2)")
+    if not (res["em"] < res["cgr"] and res["em"] < 0.2):
+        raise AssertionError("poisson_retrieval: ML-EM did not win")
+    against_plain("poisson_retrieval", res["op"], res["truth"],
+                  grads=[live(res["op"])])
+    del res
+
+    res = counted("aot_serving", device=dev)
+    if not torch.equal(res["image"], res["live"]):
+        raise AssertionError("aot_serving: served image differs from live")
+    log(f"[example aot_serving] served image bitwise the live one; "
+        f"archives {res['sizes']} B")
+    against_plain("aot_serving", res["op"], res["density"],
+                  image=res["image"],
+                  grads=[live(res["op"]), ("served", res["serve_grad"])])
+    del res
+
+    res = counted("memory_usage", device=dev)
+    est = mods["memory_usage"].estimate(flagship._nrays,
+                                        (1, *flagship.grid.shape))
+    built = flagship._tables.nbytes
+    log(f"[example memory_usage] defaults: routed tables "
+        f"{res['bytes']['routed']} B, fused rays "
+        f"{res['bytes']['fused_rays']} B; at the flagship: routed estimate "
+        f"{est['routed']} B >= built {built} B")
+    if not est["routed"] >= built:
+        raise AssertionError("memory_usage: estimate below the tables")
+    del res
+
+    with process_group(dev):
+        mesh = make_mesh(device=dev)
+        for name, mode in (("multichip_scaling", "fused"),
+                           ("volume_sharded", "routed")):
+            res = counted(name, mesh=mesh)
+            log(f"[example {name}] fwd+bwd {res['step_s'] * 1e3:.3f} ms a "
+                f"step, {res['rays_per_s']:,.0f} rays/s on {mesh.size} "
+                f"rank ({label})")
+            o = res["op"]
+            x2 = torch.rand(tuple(o.grid.shape), generator=gen).to(dev)
+            t = torch.rand(tuple(o.geom.shape), generator=gen).to(dev)
+            g2 = step_fn(o, t)(x2)[1]
+            ref = prt.Operator(o.grid, o.geom, mode=mode, device=dev)
+            with torch.no_grad():
+                y = ref(res["x"])
+            want = step_fn(ref, t)(x2)[1]
+            check_close(f"example {name} one-rank image vs unsharded",
+                        res["y"], y, 1e-5, 1e-5 * float(y.abs().max()))
+            check_close(f"example {name} one-rank gradient vs unsharded",
+                        g2, want, 1e-5, 1e-5 * float(want.abs().max()))
+            del ref, y, want
+            against_plain(name, o, x2, grads=[live(o, "one-rank")],
+                          knife=KNIFE_ROUTED if mode == "fused" else 0.0)
+            del res, o
+            torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    shutil.rmtree(outdir, ignore_errors=True)
+    if not plots:
+        log("[example] matplotlib is not installed here: no plot() called")
+    log("[example] seconds (setup, run): " + ", ".join(
+        f"{n} {s:.3f} / {r:.3f}" for n, (s, r) in seconds.items())
+        + f" ({label})")
+    return total
+
+
 def main(argv):
     import argparse
 
@@ -2479,6 +2749,14 @@ def main(argv):
         f"{sharded}")
     for k in kernels:
         k["launches"] += sharded.get(k["name"], 0)
+
+    mark(20)
+    # 20. the examples, each at the JAX script's defaults ----------------
+    t0 = time.time()
+    ex = example_checks(torch, prt, rp, dev, op, smi)
+    log(f"[example] phase {time.time() - t0:.1f} s; launches by kernel {ex}")
+    for k in kernels:
+        k["launches"] += ex.get(k["name"], 0)
 
     if profile_dir:
         mark("profile")

@@ -24,7 +24,8 @@ instantiation against its
 plain version on bf16 tables, and one training step of each routed
 configuration (f32 and bf16 weights) and of fused mode on the card
 against the CPU, ``solve.cg`` at ``'auto'`` against ``'precomputed'``
-with its launches, and ``routed_voxel_order='r'`` against ``'a'``.
+with its launches, ``routed_voxel_order='r'`` against ``'a'``, and two
+example modules (``single_vantage``, ``aot_serving``) tiny.
 """
 import numpy as np
 import pytest
@@ -756,3 +757,34 @@ def test_table_cache_warm_hit_bitwise(cuda, tmp_path, monkeypatch):
         else:
             torch.testing.assert_close(warm(x), cold(x), rtol=1e-5,
                                        atol=1e-6)
+
+
+def test_examples_tiny_on_card(cuda, tmp_path):
+    """Two example modules tiny on the card: ``single_vantage``'s image
+    against ``mode='precomputed'`` (one ``routed_fwd`` launch), and
+    ``aot_serving``'s served image bitwise the live one, its gradient at a
+    seeded target the live operator's (the served programs launch the
+    same kernels)."""
+    from sph_raytracer_tpu_torch.examples import aot_serving, single_vantage
+
+    rp.reset_launches()
+    res = single_vantage.run(cuda, grid_shape=(12, 10, 10), det=(24, 20))
+    torch.cuda.synchronize()
+    assert rp.LAUNCHES["routed_fwd"] == 1
+    ref = prt.Operator(res["op"].grid, res["op"].geom, mode="precomputed",
+                       device=cuda)
+    want = ref(res["x"])
+    torch.testing.assert_close(res["image"], want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+
+    rp.reset_launches()
+    res = aot_serving.run(cuda, n=12, det=16, export_dir=str(tmp_path))
+    torch.cuda.synchronize()
+    assert rp.LAUNCHES["routed_fwd"] >= 3
+    assert rp.LAUNCHES["routed_bwd_gather"] >= 1
+    assert torch.equal(res["image"], res["live"])
+    d = res["density"].clone().requires_grad_(True)
+    t = torch.rand(res["image"].shape, generator=torch.Generator()
+                   .manual_seed(5)).to(cuda)
+    torch.mean((res["op"](d) - t) ** 2).backward()
+    torch.testing.assert_close(res["serve_grad"](res["density"], t), d.grad)

@@ -167,11 +167,15 @@ def test_ranked_config_runs_sorted_trace():
 
 
 def test_import_loads_no_jax():
-    """Importing the port (its ``parallel`` package too) loads no jax and
-    no module of the JAX package."""
+    """Importing the port (its ``parallel`` package and every module of
+    its ``examples`` too) loads no jax and no module of the JAX package."""
     code = (
-        "import sys, sph_raytracer_tpu_torch\n"
+        "import importlib, sys, sph_raytracer_tpu_torch\n"
         "import sph_raytracer_tpu_torch.parallel\n"
+        "import sph_raytracer_tpu_torch.examples as ex\n"
+        "for name in ex.__all__:\n"
+        "    importlib.import_module(f'{ex.__name__}.{name}')\n"
+        "assert len(ex.__all__) == 9\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib')\n"
         "       or m.startswith(('jax.', 'jaxlib.'))\n"
         "       or (m.split('.')[0] == 'sph_raytracer_tpu')]\n"
