@@ -147,7 +147,14 @@ Phases (any failure raises and exits non-zero):
    second call reads the sidecar with no launch, ``cached_only`` on
    another geometry returns the base config, the chosen config's image
    within rtol 1e-5 of ``'auto'``'s) and of ``GRID_CANDIDATES`` on the
-   100³ grid.
+   100³ grid; the calls the JAX package's surface makes valid
+   (``surface_parity_checks``): ``CubesModel(grid)(None)`` and
+   ``AxisAlignmentModel(grid)(None)`` on the card, equal to the numpy
+   phantom; ``Operator(grid, geom, ftype=np.float32, itype="int32")`` at
+   the flagship through the table cache that the torch-dtype build wrote
+   (no trace: the same key), its image and gradient bitwise phase 7's;
+   ``from sph_raytracer_tpu_torch.utils import export_operator,
+   load_exported``, the names phase 20's ``aot_serving`` runs.
 
 19. ``parallel/`` (``sharded_checks``) at ``examples/multichip_scaling.py``'s
    widths (100³ grid, 20 ``ConeRectGeom((100, 200))`` views at radius 3,
@@ -158,7 +165,10 @@ Phases (any failure raises and exits non-zero):
    (NCCL): ``ShardedOperator`` at 'auto', 'off' and fused and
    ``VolShardedOperator`` at 'auto', image, gradient and ``.T`` bitwise
    equal to the unsharded operator's ('off''s scatter atomics within rtol
-   1e-5), the step (forward, loss, gradient) beside the unsharded one in
+   1e-5); ``make_mesh(None, "rays")`` and ``ShardedOperator(grid, geom,
+   mesh, None, cfg)`` (the JAX package's positional order) equal to their
+   keyword forms, the operator's image, gradient and ``.T`` bitwise; the
+   step (forward, loss, gradient) beside the unsharded one in
    turns (and 5 of each profiled) and the collective alone; four ranks
    sharing the card, each a process of a gloo group over CUDA tensors
    (``rank_process``): 'auto', fused and the volume split within 1e-5 of
@@ -1034,6 +1044,102 @@ def surface_checks(torch, prt, rp, op, opd, big_grid, dev, timer, step,
     with torch.no_grad():
         check_close(f"autotuned {rec['fields']} image vs 'auto'", best(x),
                     op(x), 1e-5, 1e-6 * float(op(x).abs().max()))
+    del best
+
+    # i. the JAX package's calls -----------------------------------------
+    for k, v in surface_parity_checks(torch, prt, rp, op, dev,
+                                      label).items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def surface_parity_checks(torch, prt, rp, op, dev, label):
+    """Phase 18's last part: calls that the JAX package's surface makes
+    valid, on the card, each beside its torch form; ``op`` is phase 7's
+    flagship operator.  Launches are counted with the counters set to 0
+    just before and read just after; returns their sums by kernel."""
+    import tempfile
+
+    from sph_raytracer_tpu_torch import operator as op_mod
+    from sph_raytracer_tpu_torch.examples import aot_serving
+    from sph_raytracer_tpu_torch.utils import export_operator, load_exported
+
+    grid, geom = op.grid, op.geom
+    total = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    # the phantoms with no coefficients: float32 on the model's device, the
+    # card by default
+    for cls in (prt.models.CubesModel, prt.models.AxisAlignmentModel):
+        m = cls(grid)
+        got = m(None)
+        want = torch.as_tensor(m.volume, dtype=torch.float32)
+        if got.device.type != dev.type or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{cls.__name__}(grid)(None) is not the "
+                                 f"numpy phantom on {dev.type}")
+    log(f"[surface parity] CubesModel / AxisAlignmentModel(grid)(None): "
+        f"float32 on {dev.type}, equal to the numpy phantom")
+
+    # numpy / named dtypes map to the torch dtypes, and so to the same
+    # cache key: the second build reads the first one's trace and tables
+    def refuse(*a, **k):
+        raise AssertionError("the numpy-dtype operator missed the cache")
+
+    old = os.environ.get("SPH_TPU_TRACE_CACHE")
+    keep = op_mod.precompute_table
+    with tempfile.TemporaryDirectory() as tdir:
+        os.environ["SPH_TPU_TRACE_CACHE"] = tdir
+        try:
+            t0 = time.time()
+            prt.Operator(grid, geom, ftype=torch.float32, itype=torch.int32,
+                         device=dev)
+            sync()
+            cold = time.time() - t0
+            op_mod.precompute_table = refuse
+            t0 = time.time()
+            opj = prt.Operator(grid, geom, ftype=np.float32, itype="int32",
+                               device=dev)
+            sync()
+            warm = time.time() - t0
+        finally:
+            op_mod.precompute_table = keep
+            if old is None:
+                os.environ.pop("SPH_TPU_TRACE_CACHE", None)
+            else:
+                os.environ["SPH_TPU_TRACE_CACHE"] = old
+    gen = torch.Generator().manual_seed(16)
+    x = torch.rand(tuple(grid.shape), generator=gen).to(dev)
+    yt = torch.rand(tuple(geom.shape), generator=gen).to(dev)
+    sync()
+    rp.reset_launches()
+    got = image_grad_T(torch, opj, x, yt)
+    sync()
+    launches = {k: v for k, v in rp.LAUNCHES.items() if v}
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    want = image_grad_T(torch, op, x, yt)
+    for what, a, b in zip(("image", "gradient", ".T"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"np.float32 / 'int32' operator {what} "
+                                 "differs from phase 7's")
+    if (opj.config.ftype, opj.config.itype) != (torch.float32,
+                                                 torch.int32):
+        raise AssertionError("np.float32 / 'int32' not stored as torch "
+                             "dtypes")
+    log(f"[surface parity] Operator(ftype=np.float32, itype='int32'): "
+        f"setup {warm:.3f} s from the cache the torch-dtype build wrote "
+        f"in {cold:.3f} s (no trace); image, gradient, .T bitwise phase "
+        f"7's; launches {launches} ({label})")
+
+    if (aot_serving.export_operator is not export_operator
+            or aot_serving.load_exported is not load_exported):
+        raise AssertionError("aot_serving does not run utils' names")
+    log("[surface parity] from sph_raytracer_tpu_torch.utils import "
+        "export_operator, load_exported: the functions phase 20's "
+        "aot_serving runs")
     return total
 
 
@@ -1345,8 +1451,26 @@ def sharded_checks(torch, prt, rp, dev, timer, label, spec, flagship):
                 + ("image, gradient, .T bitwise" if name != "off" else
                    "image bitwise, gradient and .T within rtol 1e-5"))
             if name == "auto":
-                sop_auto = o
+                sop_auto, kw_auto = o, got
             del o
+        # the JAX package's positional orders: (devices, axis) and (grid,
+        # geom, mesh, dynamic, config), each against its keyword form
+        pmesh = make_mesh(None, "rays", device=dev)
+        if pmesh != mesh:
+            raise AssertionError(f"make_mesh(None, 'rays') {pmesh} is not "
+                                 f"make_mesh(device=dev) {mesh}")
+        cfg = prt.TraceConfig(mode="routed")
+        o = built(f"{backend} auto positional",
+                  lambda: ShardedOperator(grid, geom, pmesh, None, cfg))
+        got = counted(f"{backend} auto positional",
+                      lambda: image_grad_T(torch, o, x, yt), formula("auto"))
+        if not all(torch.equal(a, b) for a, b in zip(got, kw_auto)):
+            raise AssertionError("ShardedOperator(grid, geom, mesh, None, "
+                                 "cfg) differs from its keyword form")
+        log(f"[check] one {backend} rank: make_mesh(None, 'rays') equals "
+            "make_mesh(device=...); ShardedOperator(grid, geom, mesh, None, "
+            "cfg) image, gradient, .T bitwise its keyword form's")
+        del o, got, kw_auto
         su, ss = step_of(ref_auto), step_of(sop_auto)
         turns = [("unsharded", timer(su)), ("one rank", timer(ss)),
                  ("one rank", timer(ss)), ("unsharded", timer(su))]

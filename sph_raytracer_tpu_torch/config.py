@@ -9,7 +9,10 @@ Fields fall in two groups:
   ``block_rays`` (the blockwise fused path), ``trace_method``,
   ``routed_dense``, ``routed_banded``, ``routed_fwd_reduce``,
   ``routed_w_dtype``, ``routed_voxel_order``, ``fused_backend``,
-  ``fused_bwd``.  In routed mode
+  ``fused_bwd``.  ``ftype`` and ``itype`` take what the JAX package takes
+  (a numpy dtype or scalar type, a dtype name, a JAX dtype) as well as a
+  torch dtype, and are stored as torch dtypes (:func:`as_torch_dtype`).
+  In routed mode
   ``routed_dense``, ``routed_banded`` and ``routed_fwd_reduce`` pick a
   (forward, backward) pair of kernels (``ops.routed_project.resolve``):
 
@@ -49,9 +52,34 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
-__all__ = ["TraceConfig", "default_config", "check_supported"]
+__all__ = ["TraceConfig", "default_config", "check_supported",
+           "as_torch_dtype"]
+
+
+def as_torch_dtype(x) -> torch.dtype:
+    """The torch dtype of ``x``: a ``torch.dtype``, a ``"torch.<name>"``
+    string, or anything ``np.dtype()`` takes (a numpy dtype or scalar type,
+    a dtype name, ``float``, a JAX dtype such as ``jnp.float64``, which
+    carries a numpy dtype), read as numpy reads it (``"float"`` is float64,
+    as in the JAX package); a name numpy refuses is looked up in torch
+    (``"bfloat16"``).  Anything else raises ``TypeError``."""
+    if isinstance(x, torch.dtype):
+        return x
+    name = None
+    if isinstance(x, str) and x.startswith("torch."):
+        name = x.removeprefix("torch.")
+    elif x is not None:
+        try:
+            name = np.dtype(x).name
+        except TypeError:
+            name = x if isinstance(x, str) else None
+    dt = getattr(torch, name, None) if name else None
+    if isinstance(dt, torch.dtype):
+        return dt
+    raise TypeError(f"{x!r} is not a dtype the port knows")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,6 +186,11 @@ class TraceConfig:
     routed_fwd_reduce: str = "masks"
     routed_voxel_order: str = "a"
     sharded_local_build: Optional[bool] = None
+
+    def __post_init__(self):
+        for field in ("ftype", "itype"):
+            object.__setattr__(self, field,
+                               as_torch_dtype(getattr(self, field)))
 
     def replace(self, **kw) -> "TraceConfig":
         return dataclasses.replace(self, **kw)

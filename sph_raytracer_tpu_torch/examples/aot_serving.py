@@ -2,8 +2,8 @@
 
 Port of ``examples/aot_serving.py``.  A serving process should not
 re-trace geometry or rebuild tables at start: export the operator's
-tables and program once (``utils.export.export_operator``), then serve from the
-archive (``utils.export.load_exported``), with no ``Operator``, trace or table
+tables and program once (``utils.export_operator``), then serve from the
+archive (``utils.load_exported``), with no ``Operator``, trace or table
 build on the serving path.  A 24³ grid and a 32×32 detector; the
 ``"forward"`` and ``"grad_step"`` programs are exported, restored and held
 to the live operator.  On the card the served programs launch the same
@@ -21,7 +21,7 @@ import torch
 
 from .. import ConeRectGeom, Operator, SphericalGrid
 from ..operator import resolve_device
-from ..utils.export import export_operator, load_exported
+from ..utils import export_operator, load_exported
 from ._common import Clock, parse_args
 
 

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..operator import resolve_device
+
 __all__ = ["Model", "FullyDenseModel", "CubesModel", "AxisAlignmentModel"]
 
 
@@ -56,9 +58,18 @@ class FullyDenseModel(Model):
 
 class _PhantomModel(Model):
     """Fixed test volume; ``coeffs_shape == ()`` and coeffs are ignored
-    except for their device and dtype."""
+    except for their device and dtype.  ``model(None)`` (the JAX package
+    ignores the coefficients) gives the float32 volume on the model's
+    ``device`` (``None`` at construction means ``"cuda"``)."""
+
+    def __init__(self, grid, device=None):
+        self.grid = grid
+        self.device = resolve_device(device)
 
     def __call__(self, coeffs):
+        if coeffs is None:
+            return torch.as_tensor(self.volume, dtype=torch.float32,
+                                   device=self.device)
         coeffs = torch.as_tensor(coeffs)
         return torch.as_tensor(self.volume, dtype=coeffs.dtype,
                                device=coeffs.device)
@@ -71,8 +82,8 @@ class _PhantomModel(Model):
 class CubesModel(_PhantomModel):
     """Two boxes in spherical coordinates (reference model.py:55-83)."""
 
-    def __init__(self, grid):
-        self.grid = grid
+    def __init__(self, grid, device=None):
+        super().__init__(grid, device)
         nr, ne, na = tuple(grid.shape)[-3:]
         vol = np.zeros(tuple(grid.shape))
         r0, r1 = int(nr * 0.333), int(nr * 0.666)
@@ -92,8 +103,8 @@ class AxisAlignmentModel(_PhantomModel):
     (reference model.py:86-114): bars along +X (short), +Y (medium) and the
     +Z polar cap."""
 
-    def __init__(self, grid):
-        self.grid = grid
+    def __init__(self, grid, device=None):
+        super().__init__(grid, device)
         nr, ne, na = tuple(grid.shape)[-3:]
         vol = np.zeros(tuple(grid.shape))
         vol[..., : nr // 3, ne // 2, 0] = 1          # X axis

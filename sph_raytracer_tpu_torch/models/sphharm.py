@@ -19,6 +19,7 @@ from math import factorial
 import numpy as np
 import torch
 
+from ..config import as_torch_dtype
 from ..operator import resolve_device
 from .base import Model
 
@@ -102,7 +103,8 @@ class SphHarmModel(Model):
         self.device = resolve_device(device)
         Y = real_sph_harm_basis(self.lmax, np.asarray(grid.e),
                                 np.asarray(grid.a))
-        self._Y = torch.as_tensor(Y.reshape(Y.shape[0], -1), dtype=dtype,
+        self._Y = torch.as_tensor(Y.reshape(Y.shape[0], -1),
+                                  dtype=as_torch_dtype(dtype),
                                   device=self.device)
 
     def __call__(self, coeffs):

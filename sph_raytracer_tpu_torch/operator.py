@@ -122,7 +122,9 @@ class Operator:
         grid: :class:`SphericalGrid` volume extent/resolution.
         geom: :class:`ViewGeom` detector specification.
         config: :class:`TraceConfig`; the convenience kwargs ``mode=`` /
-            ``ftype=`` / ``itype=`` / ``trace_method=`` override it.
+            ``ftype=`` / ``itype=`` / ``trace_method=`` override it
+            (``ftype`` / ``itype``: a torch, numpy or JAX dtype or its
+            name, :func:`.config.as_torch_dtype`).
         dynamic: force 4D semantics (default: ``grid.dynamic``).
         view_times: optional per-view observation times (length
             ``geom.shape[0]``, in ``grid.t`` units; numeric or datetime64);
@@ -131,13 +133,14 @@ class Operator:
             lerp-weighted lengths; the fused kernel instead reads both
             bins per segment, and outside its envelope fused mode falls
             back to 'precomputed' with a warning).
-        device: torch device of the tables and the computation; ``None``
-            means ``"cuda"``.
         debug: print a per-crossing table for one line of sight at
             construction, before the table build
             (:func:`.utils.debug.debug_trace`; only that LOS is traced).
         debug_los: index tuple into ``geom.shape`` selecting the LOS
             (default: the central pixel).
+        device: torch device of the tables and the computation; ``None``
+            means ``"cuda"``.  It comes after the JAX package's
+            parameters, so their positional calls hold.
 
     Usage::
 
@@ -150,7 +153,7 @@ class Operator:
                  config: Optional[TraceConfig] = None,
                  mode: Optional[str] = None, ftype=None, itype=None,
                  trace_method: Optional[str] = None, view_times=None,
-                 device=None, debug: bool = False, debug_los=None):
+                 debug: bool = False, debug_los=None, device=None):
         config = config or TraceConfig()
         if mode is not None:
             config = config.replace(mode=mode)

@@ -27,7 +27,9 @@ on (block, Mp) tensors (the CPU path and the kernel's oracle on the card);
 module, which is XLA there and plain torch here); and two autograd
 Functions: :func:`fused_project` (``fused_bwd='retrace'``, the custom VJP of
 ``fused_pallas.py:575-646``) and :func:`fused_routed_project` (the forward
-here, the backward a routed kernel on backward-only tables).
+here, the backward a routed kernel on backward-only tables);
+:func:`fused_pallas_project` is the JAX module's entry under its own name
+and signature, over :func:`prep_rays` and :func:`fused_project`.
 
 Scope (:func:`supported`): float32, ≤127 boundaries per axis, azimuth
 boundaries within [-π, π] (the half-plane tests assume it), padded M ≤ 512
@@ -51,6 +53,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..config import as_torch_dtype
 from ._cuda import launch
 from .trace import GridSpec, pack_linear, trace_crossings
 
@@ -65,6 +68,7 @@ __all__ = [
     "bwd_blockwise",
     "fused_project",
     "fused_routed_project",
+    "fused_pallas_project",
 ]
 
 INF = math.inf
@@ -424,3 +428,22 @@ def fused_routed_project(d, gs: GridSpec, rays: FusedRays, tables, bwd):
     """Differentiable fused projection trained through ``bwd`` (one of
     ``routed_project.BACKWARDS``) on ``tables``."""
     return _FusedRouted.apply(d, gs, rays, tables, bwd)
+
+
+def fused_pallas_project(gs: GridSpec, density_flat, xs, rays,
+                         itype=torch.int32, interpret: bool = False,
+                         view_offsets=None, view_offsets2=None,
+                         view_w=None):
+    """The JAX module's entry (``fused_pallas.py:576``): the fused forward
+    projection of a flat density (V,) (T·V with ``view_offsets``) through
+    rays (*rshape, 3), on the density's device, as (*rshape,) f32.
+    ``view_offsets2`` / ``view_w`` lerp each segment between two time bins.
+    Differentiable w.r.t. the density by the blockwise re-trace, as the
+    JAX function's custom VJP.  ``interpret`` is accepted and ignored (a
+    CPU density runs the kernel's plain version)."""
+    d = torch.as_tensor(density_flat)
+    rshape = np.broadcast_shapes(np.shape(xs), np.shape(rays))[:-1]
+    frays = prep_rays(xs, rays, view_offsets, view_offsets2, view_w,
+                      device=d.device)
+    y = fused_project(d.to(torch.float32), gs, frays, as_torch_dtype(itype))
+    return y.reshape(rshape)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..config import as_torch_dtype
 from .trace import GridSpec, pack_linear, trace_crossings
 
 __all__ = ["precompute_table", "project_table", "backproject_table",
@@ -26,7 +27,8 @@ __all__ = ["precompute_table", "project_table", "backproject_table",
 
 
 def precompute_table(gs: GridSpec, xs, rays, block: int = 8192,
-                     itype=torch.int32, device=None):
+                     itype=torch.int32, method: str = "sorted",
+                     platform: str = "", device=None):
     """Trace all rays once, returning packed (lin, lens) tables.
 
     Args:
@@ -34,9 +36,15 @@ def precompute_table(gs: GridSpec, xs, rays, block: int = 8192,
             tensors; broadcast against each other), converted to
             ``gs.ftype`` on ``device``.
         block: rays traced per step; peak memory is O(block·M).
+        itype: a torch, numpy or JAX dtype or its name.
+        method / platform: accepted and ignored.  The JAX package's
+            'ranked' trace gives the same (voxel, length) pairs as its
+            'sorted' one without a sort, which is slow on a TPU; the port
+            runs the sorted trace for both (``ops.trace``).
 
     Returns (lin (R, M) int, lens (R, M) float, R, rshape).
     """
+    itype = as_torch_dtype(itype)
     xs = torch.as_tensor(xs, dtype=gs.ftype, device=device)
     rays = torch.as_tensor(rays, dtype=gs.ftype, device=xs.device)
     shape = torch.broadcast_shapes(xs.shape, rays.shape)
@@ -104,6 +112,7 @@ def project_fused(gs: GridSpec, density_flat, xs, rays, view_offsets=None,
 
     Returns (..., *rshape) line integrals.
     """
+    itype = as_torch_dtype(itype)
     dev = density_flat.device
     xs = torch.as_tensor(xs, dtype=gs.ftype, device=dev)
     rays = torch.as_tensor(rays, dtype=gs.ftype, device=dev)

@@ -14,7 +14,10 @@ ray, all rays vectorized:
 ``M = 2(N_r+1) + 2(N_e+1) + (N_a+1) + 1`` crossings per ray.
 ``trace_method='ranked'`` runs this pipeline too: the JAX package's
 ``trace_crossings_ranked`` avoids a sort that is slow on a TPU and yields
-the same (voxel, length) pairs, and the sort is fast on the card.
+the same (voxel, length) pairs, and the sort is fast on the card; the
+port's :func:`trace_crossings_ranked` is the sorted trace under that name.
+:func:`forward_fill` (the JAX package's utility for the reference's
+entered-region fill) is kept for code written against it.
 
 ``voxel_order_lin`` / ``_flat`` / ``_unflat`` relabel voxel ids and
 densities between the canonical azimuth-innermost order and the
@@ -30,26 +33,35 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..config import as_torch_dtype
 from .intersect import (
+    INVALID,
     OUTSIDE,
     cone_crossings,
     plane_crossings,
     sphere_crossings,
 )
 
-__all__ = ["GridSpec", "trace_crossings", "pack_linear",
-           "voxel_order_lin", "voxel_order_flat", "voxel_order_unflat"]
+__all__ = ["GridSpec", "trace_crossings", "trace_crossings_ranked",
+           "forward_fill", "pack_linear", "voxel_order_lin",
+           "voxel_order_flat", "voxel_order_unflat"]
 
 
 @dataclasses.dataclass(frozen=True)
 class GridSpec:
-    """Grid boundaries as hashable float tuples plus shape facts."""
+    """Grid boundaries as hashable float tuples plus shape facts; the
+    float dtype by name (``ftype_name``, as in the JAX package), read as a
+    torch dtype through :attr:`ftype`."""
 
     r_b: Tuple[float, ...]
     e_b: Tuple[float, ...]
     a_b: Tuple[float, ...]
     full_azimuth: bool
-    ftype: torch.dtype = torch.float32
+    ftype_name: str = "float32"
+
+    @property
+    def ftype(self) -> torch.dtype:
+        return as_torch_dtype(self.ftype_name)
 
     @property
     def nr(self) -> int:
@@ -82,7 +94,7 @@ class GridSpec:
             e_b=tuple(float(x) for x in grid.e_b),
             a_b=tuple(float(x) for x in grid.a_b),
             full_azimuth=grid.full_azimuth,
-            ftype=ftype,
+            ftype_name=str(as_torch_dtype(ftype)).removeprefix("torch."),
         )
 
 
@@ -126,7 +138,22 @@ def _bin_segments(gs: GridSpec, xs, rays_n, ts, lens_raw, itype):
     return torch.stack([reg_r, reg_e, reg_a], dim=0), valid
 
 
-def trace_crossings(gs: GridSpec, xs, rays, itype=torch.int32, ftype=None):
+def forward_fill(x, initial, fill_what: int = INVALID, axis: int = -1):
+    """Replace ``fill_what`` entries with the last valid value along
+    ``axis`` (``initial`` before the first one; its shape is ``x``'s
+    without ``axis``): a ``cummax`` over the valid entries' positions."""
+    x = torch.as_tensor(x)
+    xm = x.movedim(axis, -1)
+    pos = torch.arange(xm.shape[-1], device=x.device).expand(xm.shape)
+    last = torch.where(xm != fill_what, pos, -1).cummax(dim=-1).values
+    filled = torch.gather(xm, -1, last.clamp(min=0))
+    init = torch.as_tensor(initial, dtype=x.dtype, device=x.device)
+    out = torch.where(last < 0, init[..., None], filled)
+    return out.movedim(-1, axis)
+
+
+def trace_crossings(gs: GridSpec, xs, rays, itype=torch.int32, ftype=None,
+                    platform=None):
     """Full crossing trace for a batch of rays.
 
     Args:
@@ -134,6 +161,10 @@ def trace_crossings(gs: GridSpec, xs, rays, itype=torch.int32, ftype=None):
         xs: ray start positions (*rays, 3) tensor (broadcastable against
             ``rays``); the trace runs on its device.
         rays: ray directions (*rays, 3).
+        itype / ftype: a torch, numpy or JAX dtype or its name
+            (``ftype=None``: ``gs.ftype``).
+        platform: accepted and ignored (the JAX package's choice of the
+            TPU binning code; the device is ``xs``'s).
 
     Returns:
         regs: (3, *rays, M) voxel index triplet per sorted crossing
@@ -141,7 +172,8 @@ def trace_crossings(gs: GridSpec, xs, rays, itype=torch.int32, ftype=None):
         lens: (*rays, M) segment length per crossing; zero where invalid.
         ts: (*rays, M) sorted crossing distances.
     """
-    ftype = ftype or gs.ftype
+    itype = as_torch_dtype(itype)
+    ftype = gs.ftype if ftype is None else as_torch_dtype(ftype)
     xs = torch.as_tensor(xs, dtype=ftype)
     rays = torch.as_tensor(rays, dtype=ftype, device=xs.device)
     shape = torch.broadcast_shapes(xs.shape, rays.shape)
@@ -163,6 +195,15 @@ def trace_crossings(gs: GridSpec, xs, rays, itype=torch.int32, ftype=None):
     regs, valid = _bin_segments(gs, xs, rays_n, ts_s, lens_raw, itype)
     lens = torch.where(valid, lens_raw, 0.0)
     return regs, lens, ts_s
+
+
+def trace_crossings_ranked(gs: GridSpec, xs, rays, itype=torch.int32,
+                           ftype=None, platform=None):
+    """The JAX package's sort-free trace: the same (regs, lens) pairs as
+    :func:`trace_crossings`, whose order that function leaves open.  It
+    exists there because a sort is slow on a TPU; the card sorts fast, so
+    this is :func:`trace_crossings` itself (its pairs in sorted order)."""
+    return trace_crossings(gs, xs, rays, itype, ftype, platform)
 
 
 def pack_linear(regs, gs: GridSpec, itype=torch.int32):

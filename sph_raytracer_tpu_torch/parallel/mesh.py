@@ -26,6 +26,8 @@ from ..operator import resolve_device
 
 __all__ = ["Mesh", "make_mesh", "distributed_init"]
 
+RAY_AXIS = "rays"
+
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
@@ -37,12 +39,15 @@ class Mesh:
         rank: this rank's place in the group, 0 .. size-1 (-1: not in it).
         size: the number of ranks.
         device: this rank's device, where its share of the tables lives.
+        axis: the name of the mesh's one axis, the ray axis (the JAX
+            package's mesh axis name; ``shard_rays`` checks it).
     """
 
     group: object
     rank: int
     size: int
     device: torch.device
+    axis: str = RAY_AXIS
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the group, in place, and return it (a one-rank
@@ -81,7 +86,7 @@ def distributed_init(coordinator_address: Optional[str] = None,
 
 
 def make_mesh(devices: Union[None, int, Sequence[int]] = None,
-              device=None) -> Mesh:
+              axis: str = RAY_AXIS, *, device=None) -> Mesh:
     """This rank's :class:`Mesh` over ranks of the default group.
 
     Args:
@@ -89,11 +94,13 @@ def make_mesh(devices: Union[None, int, Sequence[int]] = None,
             take the first N (default all).  More than the world size
             raises ``ValueError``, as the JAX package's ``make_mesh(n)``
             does for devices.
-        device: this rank's device, as :func:`..operator.resolve_device`
-            takes it: ``None`` means the card (the current GPU; with no
-            card that raises), and the CPU only when ``"cpu"`` is passed,
-            whatever the group's backend.  A group whose backend does not
-            carry tensors of that device type raises ``ValueError``.
+        axis: the mesh axis name, as in the JAX package.
+        device: keyword only, after the JAX package's parameters; this
+            rank's device, as :func:`..operator.resolve_device` takes it:
+            ``None`` means the card (the current GPU; with no card that
+            raises), and the CPU only when ``"cpu"`` is passed, whatever
+            the group's backend.  A group whose backend does not carry
+            tensors of that device type raises ``ValueError``.
 
     A group other than the whole world comes from ``new_group``, which
     every rank of the default group must call; a rank outside it gets a
@@ -123,4 +130,4 @@ def make_mesh(devices: Union[None, int, Sequence[int]] = None,
             raise ValueError(f"the process group's backend ({config}) "
                              f"carries no {dev.type} tensors")
     return Mesh(group, ranks.index(me) if me in ranks else -1, len(ranks),
-                dev)
+                dev, axis)

@@ -25,6 +25,10 @@ on every rank, and the gradient with respect to ``x`` the full gradient.
 
 A rank whose range holds no ray still takes part in both collectives
 (with zeros), so a mesh larger than the rays does not hang.
+
+:func:`sharded_project` is the JAX module's function of the same name: the
+fused projection of each rank's rays (:func:`shard_rays`), summed into
+the image of every ray on every rank, differentiable as the operator is.
 """
 from __future__ import annotations
 
@@ -33,12 +37,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..config import TraceConfig, as_torch_dtype
 from ..operator import Operator
+from ..ops.fused_project import fused_project, prep_rays
+from ..ops.project import project_fused
 from ..ops.routed_project import WIN_G, routed_fwd_window
-from ..ops.trace import voxel_order_unflat
-from .mesh import Mesh, make_mesh
+from ..ops.trace import GridSpec, voxel_order_unflat
+from .mesh import RAY_AXIS, Mesh, make_mesh
 
-__all__ = ["ShardedOperator", "shard_rays", "ray_range"]
+__all__ = ["ShardedOperator", "shard_rays", "sharded_project", "ray_range"]
 
 
 def ray_range(n: int, size: int, rank: int, block: int = 1):
@@ -50,15 +57,18 @@ def ray_range(n: int, size: int, rank: int, block: int = 1):
     return lo, min(lo + per, n)
 
 
-def shard_rays(mesh: Mesh, xs, rays, block: int = 1):
+def shard_rays(mesh: Mesh, xs, rays, axis: str = RAY_AXIS, block: int = 1):
     """Flatten the ray arrays (broadcast against each other) and take this
     rank's contiguous range of them (:func:`ray_range`).
 
     The JAX package pads the rays to a multiple of the mesh with rays that
-    miss the grid; here the ranges differ in length instead.
+    miss the grid; here the ranges differ in length instead.  ``axis`` is
+    the mesh's axis name (``ValueError`` for another).
 
     Returns ``(xs (n_rank, 3), rays (n_rank, 3), n, ray_shape)``, float64
     numpy, with ``n`` the number of rays of every rank together."""
+    if axis != mesh.axis:
+        raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {axis!r}")
     xs = np.asarray(xs, dtype=np.float64)
     rays = np.asarray(rays, dtype=np.float64)
     shape = np.broadcast_shapes(xs.shape, rays.shape)
@@ -69,35 +79,113 @@ def shard_rays(mesh: Mesh, xs, rays, block: int = 1):
             tuple(shape[:-1]))
 
 
+def _placed(mesh: Mesh, local, span, n, like):
+    """``local`` (C, hi - lo; None: zeros of ``like``'s dtype) at columns
+    ``span`` = (lo, hi) of a zero (C, n) tensor, summed over ``mesh``."""
+    if local is not None and tuple(span) == (0, n):
+        return mesh.all_reduce(local.contiguous())
+    out = like.new_zeros((like.shape[0], n), dtype=(
+        like.dtype if local is None else local.dtype))
+    if local is not None:
+        out[:, span[0]:span[1]] = local
+    return mesh.all_reduce(out)
+
+
 class _Summed(torch.autograd.Function):
     """The sharded forward ``x2 → Σ_ranks A_rank·x2``, differentiable.
-    Each rank runs its operator's own differentiable forward
-    (:meth:`..operator.Operator._fwd_local`, every mode's autograd as it
-    is) on its voxels of ``x2``, keeping that local graph; the image and,
-    in the backward, the gradient that local graph gives are each summed
-    over the mesh, so every rank takes part in both collectives, with
-    zeros where it holds no ray or no voxel."""
+    Each rank runs ``local_fwd``, a differentiable forward of its share
+    (for the operators :meth:`..operator.Operator._fwd_local`, every
+    mode's autograd as it is; None where it holds no work) on ``x2``,
+    keeping that local graph; the piece is placed at the rank's columns
+    ``rows`` of the (C, n) result and summed over the mesh, and in the
+    backward the gradient the local graph gives for ``dy[:, rows]`` is
+    summed over ``mesh``, so every rank takes part in both collectives,
+    with zeros where it holds no ray or no voxel."""
 
     @staticmethod
-    def forward(ctx, x2, op):
+    def forward(ctx, x2, local_fwd, mesh, rows, n):
         with torch.enable_grad():
             xl = x2.detach().requires_grad_(True)
-            local = op._local_fwd(xl)
-        ctx.op, ctx.xl, ctx.local = op, xl, local
+            local = local_fwd(xl)
+        ctx.mesh, ctx.rows, ctx.xl, ctx.local = mesh, rows, xl, local
         # a copy: the sum runs in place, and ``local`` roots the backward
-        return op._summed(None if local is None else local.detach().clone(),
-                          op._rows, op._nrays, x2)
+        return _placed(mesh, None if local is None else
+                       local.detach().clone(), rows, n, x2)
 
     @staticmethod
     def backward(ctx, dy):
-        lo, hi = ctx.op._rows
+        lo, hi = ctx.rows
         g = None
         if ctx.local is not None:
             (g,) = torch.autograd.grad(ctx.local, ctx.xl, dy[:, lo:hi],
                                        allow_unused=True)
         g = torch.zeros_like(ctx.xl) if g is None else g.contiguous()
         ctx.xl = ctx.local = None
-        return ctx.op.mesh.all_reduce(g), None
+        return ctx.mesh.all_reduce(g), None, None, None, None
+
+
+def _sharded_forward(mesh: Mesh, x2, local_fwd, rows, n):
+    """The (C, n) image of every rank's rays on every rank: each rank's
+    ``local_fwd(x2)`` at its columns ``rows``, summed over ``mesh``;
+    differentiable (:class:`_Summed`) where ``x2`` asks for a gradient.
+    The one placement and reduction of the sharded operators and
+    :func:`sharded_project`."""
+    if torch.is_grad_enabled() and x2.requires_grad:
+        return _Summed.apply(x2, local_fwd, mesh, rows, n)
+    return _placed(mesh, local_fwd(x2), rows, n, x2)
+
+
+def sharded_project(mesh: Mesh, gs: GridSpec, flat2, xs, rays, off, block,
+                    itype_name, axis: str = RAY_AXIS, pallas: bool = False,
+                    interpret: bool = False, off2=None, w=None):
+    """Fused projection with the rays sharded and the volume replicated
+    (the JAX module's ``sharded_project``), called on every rank of
+    ``mesh``.
+
+    Args:
+        flat2: (C, V) volume (C, T·V with ``off``), channels flattened.
+        xs / rays / off: this rank's rays, as :func:`shard_rays` gives
+            them, and their per-ray time offsets t·V (zeros for a static
+            grid).
+        block: rays a block of the blockwise re-trace.
+        itype_name: the index dtype, a name or any dtype.
+        pallas: run the fused engine (``fused_fwd``) on the rank's rays
+            instead of the blockwise re-trace; ``off2`` / ``w`` (lerp
+            between two time bins) need it, as in the JAX package.
+        interpret: accepted and ignored (CPU tensors run the kernel's
+            plain version).
+
+    Returns the (C, n) image of every rank's rays on every rank (the JAX
+    function returns it ray-sharded, padded to the mesh), differentiable
+    w.r.t. ``flat2``: the gradient is summed over the mesh.  Two
+    collectives a forward (the ranks' ray counts, the image) and one a
+    backward."""
+    if axis != mesh.axis:
+        raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {axis!r}")
+    if w is not None and not pallas:
+        raise ValueError("lerp (off2 / w) needs the fused engine, "
+                         "pallas=True")
+    flat2 = torch.as_tensor(flat2, device=mesh.device)
+    if pallas:  # the fused engine computes in float32
+        flat2 = flat2.to(torch.float32)
+    itype = as_torch_dtype(itype_name)
+    k = int(np.shape(xs)[0])
+    counts = torch.zeros(mesh.size, dtype=torch.int64, device=mesh.device)
+    counts[mesh.rank] = k
+    counts = mesh.all_reduce(counts).tolist()
+    lo = sum(counts[:mesh.rank])
+
+    def local_fwd(x2):
+        if k == 0:
+            return None
+        if not pallas:
+            return project_fused(gs, x2, xs, rays, view_offsets=off,
+                                 block=block, itype=itype)
+        frays = prep_rays(xs, rays, off, off2, w, device=x2.device)
+        return torch.stack([fused_project(x, gs, frays, itype) for x in x2])
+
+    return _sharded_forward(mesh, flat2, local_fwd, (lo, lo + k),
+                            sum(counts))
 
 
 class _ShardedBase(Operator):
@@ -106,8 +194,8 @@ class _ShardedBase(Operator):
     this rank's rays ``_rows`` and voxels ``_vox``: each result placed in a
     zero tensor of every ray (or voxel) and summed over the mesh."""
 
-    def __init__(self, grid, geom, mesh: Optional[Mesh] = None, device=None,
-                 **kw):
+    def __init__(self, grid, geom, mesh: Optional[Mesh] = None, dynamic=None,
+                 config: Optional[TraceConfig] = None, device=None, **kw):
         if mesh is not None and device is not None:
             raise ValueError("pass device= to make_mesh, or a mesh, not "
                              "both (the mesh holds this rank's device)")
@@ -115,7 +203,8 @@ class _ShardedBase(Operator):
         if self.mesh.rank < 0:
             raise ValueError("this rank is not in the mesh (make_mesh gave "
                              "it rank -1)")
-        super().__init__(grid, geom, device=self.mesh.device, **kw)
+        super().__init__(grid, geom, dynamic=dynamic, config=config,
+                         device=self.mesh.device, **kw)
 
     def _empty(self):
         return self._rows[0] == self._rows[1] or self._vox[0] == self._vox[1]
@@ -125,17 +214,6 @@ class _ShardedBase(Operator):
         order) on its voxels, or None where it holds no work."""
         return None if self._empty() else self._fwd_local(
             x2[:, self._vox[0]:self._vox[1]])
-
-    def _summed(self, local, span, n, like):
-        """``local`` (C, hi - lo; None: zeros) at columns ``span`` =
-        (lo, hi) of a zero (C, n) tensor, summed over the mesh."""
-        if local is not None and tuple(span) == (0, n):
-            return self.mesh.all_reduce(local.contiguous())
-        out = like.new_zeros((like.shape[0], n), dtype=(
-            like.dtype if local is None else local.dtype))
-        if local is not None:
-            out[:, span[0]:span[1]] = local
-        return self.mesh.all_reduce(out)
 
     def __call__(self, density):
         """Forward projection: the full ``(*channels, *geom.shape)`` image
@@ -147,11 +225,8 @@ class _ShardedBase(Operator):
                              f"not end with grid shape {gshape}")
         chan = density.shape[: -len(gshape)]
         x2 = self._kernel_in(density.reshape(-1, self._flat_size))
-        if torch.is_grad_enabled() and x2.requires_grad:
-            out = _Summed.apply(x2, self)
-        else:
-            out = self._summed(self._local_fwd(x2), self._rows, self._nrays,
-                               x2)
+        out = _sharded_forward(self.mesh, x2, self._local_fwd, self._rows,
+                               self._nrays)
         return out.reshape(tuple(chan) + self._rshape)
 
     def T(self, line_integrations):
@@ -164,7 +239,7 @@ class _ShardedBase(Operator):
             y2 = y2.to(self._kernel_dtype())
         lo, hi = self._rows
         local = None if self._empty() else self._bwd_local(y2[:, lo:hi])
-        out = self._summed(local, self._vox, self._flat_size, y2)
+        out = _placed(self.mesh, local, self._vox, self._flat_size, y2)
         out = voxel_order_unflat(out, self.grid.vshape, self._vorder)
         return out.reshape(*chan, *self.grid.shape)
 
@@ -176,15 +251,16 @@ class ShardedOperator(_ShardedBase):
     Args:
         grid / geom: as :class:`..operator.Operator`.
         mesh: :class:`.mesh.Mesh`; its device is this rank's.
-        device: with no ``mesh``, the device :func:`.mesh.make_mesh` is
-            given for its mesh of every rank of the default group
-            (``None``: the card).
         dynamic / config / mode / ftype / itype / view_times / ...: as
             :class:`..operator.Operator`.  Each rank traces and builds the
             tables of its own rays alone (``config.sharded_local_build`` is
             accepted and changes nothing); the window tables
             (``routed_banded=False``) split in whole tiles of
             :data:`..ops.routed_project.WIN_G` rays.
+        device: with no ``mesh``, the device :func:`.mesh.make_mesh` is
+            given for its mesh of every rank of the default group
+            (``None``: the card).  It comes after the JAX package's
+            parameters (``grid, geom, mesh, dynamic, config``).
 
     Usage::
 

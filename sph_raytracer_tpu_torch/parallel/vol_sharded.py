@@ -64,9 +64,9 @@ class VolShardedOperator(_ShardedBase):
         if cfg.ftype != torch.float32:
             raise ValueError(f"VolShardedOperator runs the routed kernels, "
                              f"whose tables are float32; got {cfg.ftype}")
-        super().__init__(grid, geom, mesh, device,
-                         config=cfg.replace(mode="routed"),
-                         view_times=view_times, dynamic=dynamic)
+        super().__init__(grid, geom, mesh, dynamic,
+                         cfg.replace(mode="routed"), device,
+                         view_times=view_times)
 
     def _build(self):
         m = self.mesh

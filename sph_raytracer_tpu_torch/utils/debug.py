@@ -55,7 +55,7 @@ def debug_trace(op, los: Optional[tuple] = None, out=None):
                          (*rshape, 3))[los]
     rays = np.broadcast_to(np.asarray(op.geom.rays, np.float64),
                            (*rshape, 3))[los]
-    gs = dataclasses.replace(op.gs, ftype=torch.float64)
+    gs = dataclasses.replace(op.gs, ftype_name="float64")
     regs, lens, ts = trace_crossings(gs, torch.from_numpy(xs[None].copy()),
                                      torch.from_numpy(rays[None].copy()),
                                      itype=op.config.itype)

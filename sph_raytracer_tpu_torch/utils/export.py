@@ -35,6 +35,7 @@ from typing import Callable
 
 import torch
 
+from ..config import as_torch_dtype
 from ..ops import routed_project as rp
 from ..ops.fused_project import (
     FusedRays,
@@ -135,10 +136,6 @@ def export_operator(op, path: str, what: str = "forward",
         z.writestr("payload.pt", buf.getvalue())
 
 
-def _dtype(name: str) -> torch.dtype:
-    return getattr(torch, name.split(".", 1)[1])
-
-
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy in fresh storage when it does not start on 16 B
     (the quad walks' check, ``ops/routed_project._aligned``)."""
@@ -165,13 +162,13 @@ def _program(meta, tensors) -> Callable:
             fwd)
     g = meta["gs"]
     gs = GridSpec(tuple(g["r_b"]), tuple(g["e_b"]), tuple(g["a_b"]),
-                  g["full_azimuth"], _dtype(g["ftype"]))
+                  g["full_azimuth"], g["ftype"].removeprefix("torch."))
     rays = _join(FusedRays, "frays", meta["rays"], tensors)
     if tables is not None:
         return lambda d: fused_routed_project(d.to(torch.float32), gs, rays,
                                               tables, bwd)
     if meta["fused_bwd"] == "retrace":
-        itype = _dtype(meta["itype"])
+        itype = as_torch_dtype(meta["itype"])
         return lambda d: fused_project(d.to(torch.float32), gs, rays, itype)
     return lambda d: fused_fwd(gs, rays, d.to(torch.float32))
 

@@ -42,8 +42,11 @@ from sph_raytracer_tpu_torch.parallel import (
     make_mesh,
     shard_rays,
 )
+from sph_raytracer_tpu_torch.ops.fused_project import fused_pallas_project
+from sph_raytracer_tpu_torch.ops.project import project_fused
+from sph_raytracer_tpu_torch.ops.trace import GridSpec
 from sph_raytracer_tpu_torch.parallel.mesh import Mesh
-from sph_raytracer_tpu_torch.parallel.sharded import ray_range
+from sph_raytracer_tpu_torch.parallel.sharded import ray_range, sharded_project
 
 torch.set_num_threads(2)
 
@@ -508,6 +511,107 @@ def test_vol_sharded_refuses_f64():
         VolShardedOperator(grid, geom, mesh=mesh, ftype=F64)
     with pytest.raises(ValueError, match="not in the mesh"):
         ShardedOperator(grid, geom, mesh=Mesh(None, -1, 1, mesh.device))
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's positional orders and sharded_project
+# ---------------------------------------------------------------------------
+
+def test_positional_calls_match_keyword_forms(tmp_path):
+    """On a one-rank gloo group, the calls the JAX package's signatures
+    make valid: ``make_mesh(None, "rays")``, ``shard_rays(mesh, xs, rays,
+    "rays", 1)``, ``ShardedOperator(grid, geom, mesh, True, cfg)`` and
+    ``VolShardedOperator(grid, geom, mesh, cfg, np.float32)`` each give
+    their keyword form's result, bitwise; another axis name is kept on
+    the mesh and refused by ``shard_rays``."""
+    distributed_init(f"file://{tmp_path}/store", num_processes=1,
+                     process_id=0, device="cpu")
+    try:
+        mesh = make_mesh(None, "rays", device="cpu")
+        assert mesh == make_mesh(device="cpu") and mesh.axis == "rays"
+        assert make_mesh(None, "r", device="cpu").axis == "r"
+        grid, geom = CONFIGS["dyn4d"](prt)
+        for got, want in zip(
+                shard_rays(mesh, geom.ray_starts, geom.rays, "rays", 1),
+                shard_rays(mesh, geom.ray_starts, geom.rays, block=1)):
+            np.testing.assert_array_equal(got, want)
+        with pytest.raises(ValueError, match="axis"):
+            shard_rays(mesh, geom.ray_starts, geom.rays, "r")
+        cfg = prt.TraceConfig(mode="routed")
+        x = torch.tensor(_inputs("dyn4d")[0], dtype=torch.float32)
+        pos = ShardedOperator(grid, geom, mesh, True, cfg)
+        kw = ShardedOperator(grid, geom, mesh=mesh, dynamic=True,
+                             config=cfg)
+        assert pos.dynamic and pos.config == kw.config
+        assert torch.equal(pos(x), kw(x))
+        grid, geom = CONFIGS["uneven"](prt)
+        x = torch.tensor(_inputs("uneven")[0], dtype=torch.float32)
+        vpos = VolShardedOperator(grid, geom, mesh, cfg, np.float32)
+        vkw = VolShardedOperator(grid, geom, mesh=mesh, config=cfg,
+                                 ftype=torch.float32)
+        assert torch.equal(vpos(x), vkw(x))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name,pallas", [
+    ("setup", False), ("uneven", False), ("uneven", True), ("dyn4d", False),
+    ("dyn4d", True)])
+def test_sharded_project(request, name, pallas):
+    """``sharded_project`` in the JAX argument order on two ranks, each
+    with its ``shard_rays`` range and time offsets t·V: every rank's image
+    of every ray and its gradient of a sum of squares (summed over the
+    mesh) against the unsharded projection of all rays, ``project_fused``
+    at float64 (image bitwise, gradient rtol 1e-12) or, with ``pallas``,
+    the fused engine at float32 (image bitwise, gradient rtol 1e-6): the
+    ranks sum the gradient in another order.  At ``setup`` the image is
+    also held to the JAX ``ShardedOperator(mode='fused')``'s, which runs
+    the JAX ``sharded_project`` (atol 1e-10, as
+    ``test_sharded_matches_jax``)."""
+    grid, geom = CONFIGS[name](prt)
+    dt = torch.float32 if pallas else F64
+    gs = GridSpec.from_grid(grid, dt)
+    x, t = _inputs(name)
+    flat2 = torch.tensor(np.stack([x, 2 * x]).reshape(2, -1), dtype=dt)
+    t = torch.tensor(t.reshape(-1), dtype=dt)
+    xs, rays = (a.reshape(-1, 3) for a in np.broadcast_arrays(
+        geom.ray_starts, geom.rays))
+    n = len(xs)
+    off = np.zeros(n, np.int32)
+    if grid.dynamic:  # each view sees its time bin
+        off = np.repeat(np.arange(geom.shape[0]) * (flat2.shape[1] //
+                        grid.shape.t), n // geom.shape[0]).astype(np.int32)
+
+    def drive(fn):
+        d = flat2.clone().requires_grad_(True)
+        y = fn(d)
+        torch.sum((y - t) ** 2).backward()
+        return y.detach(), d.grad
+
+    if pallas:
+        want = drive(lambda d: torch.stack([fused_pallas_project(
+            gs, c, xs, rays, view_offsets=off) for c in d]))
+    else:
+        want = drive(lambda d: project_fused(gs, d, xs, rays,
+                                             view_offsets=off, block=4))
+
+    def rank(mesh):
+        rxs, rrays, _, _ = shard_rays(mesh, geom.ray_starts, geom.rays,
+                                      "rays", 1)
+        lo, hi = ray_range(n, mesh.size, mesh.rank)
+        return drive(lambda d: sharded_project(
+            mesh, gs, d, rxs, rrays, off[lo:hi], 4, "int32", "rays",
+            pallas))
+
+    jax_y2 = (request.getfixturevalue("jax_sharded")[name, "fused"]["y2"]
+              if name == "setup" else None)
+    for y, g in run_ranks(2, rank):
+        assert torch.equal(y, want[0])
+        torch.testing.assert_close(g, want[1],
+                                   rtol=1e-6 if pallas else 1e-12, atol=0)
+        if jax_y2 is not None:
+            np.testing.assert_allclose(y.numpy(), jax_y2.reshape(2, -1),
+                                       rtol=0, atol=TOL64)
 
 
 # ---------------------------------------------------------------------------

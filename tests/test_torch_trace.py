@@ -10,6 +10,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,8 +20,12 @@ import sph_raytracer_tpu as srt
 import sph_raytracer_tpu_torch as prt
 from sph_raytracer_tpu.ops.project import precompute_table as jax_precompute
 from sph_raytracer_tpu.ops.trace import GridSpec as JaxGridSpec
+from sph_raytracer_tpu.ops.trace import forward_fill as jax_forward_fill
+from sph_raytracer_tpu_torch.ops.intersect import INVALID
 from sph_raytracer_tpu_torch.ops.project import precompute_table
-from sph_raytracer_tpu_torch.ops.trace import GridSpec
+from sph_raytracer_tpu_torch.ops.trace import (GridSpec, forward_fill,
+                                               pack_linear,
+                                               trace_crossings_ranked)
 
 torch.set_num_threads(2)
 
@@ -164,6 +169,52 @@ def test_ranked_config_runs_sorted_trace():
     for op in ops[1:]:
         assert torch.equal(op.lin, ops[0].lin)
         assert torch.equal(op.lens, ops[0].lens)
+
+
+@pytest.mark.parametrize("name", sorted(RANKED_GRIDS))
+def test_trace_crossings_ranked_matches_jax(name):
+    """The port's ``trace_crossings_ranked`` (the JAX name over the sorted
+    trace; JAX-style dtypes and ``platform`` taken) holds the (voxel,
+    length) pairs of the JAX package's ``trace_crossings_ranked`` as a
+    multiset per ray at float64.  The JAX side is the ranked
+    ``precompute_table`` of ``test_ranked_matches_jax_ranked_trace``, the
+    same call at the same shapes."""
+    xs, dirs = _rays_into_grid()
+    jl, jn, n, _ = jax_precompute(
+        JaxGridSpec.from_grid(RANKED_GRIDS[name](srt), ftype=jnp.float64),
+        xs, dirs, block=64, method="ranked")
+    gs = GridSpec.from_grid(RANKED_GRIDS[name](prt), ftype=np.float64)
+    regs, lens, ts = trace_crossings_ranked(gs, torch.tensor(xs),
+                                            torch.tensor(dirs), np.int64,
+                                            None, "tpu")
+    assert lens.dtype == torch.float64 and ts.shape == lens.shape
+    lin = pack_linear(regs, gs, itype=torch.int64)
+    live = 0
+    for (a_l, a_n), (b_l, b_n) in zip(_multisets(jl[:n], jn[:n]),
+                                      _multisets(lin, lens)):
+        np.testing.assert_array_equal(b_l, a_l)
+        np.testing.assert_allclose(b_n, a_n, rtol=0, atol=1e-12)
+        live += len(a_l)
+    assert live > 0
+
+
+def test_forward_fill_matches_jax():
+    """``forward_fill`` against the JAX package's on random int32 arrays
+    with 40 % of the entries ``INVALID``, along each axis: exactly (the
+    JAX function jitted: eager, its scan compiles op by op)."""
+    jax_fill = jax.jit(jax_forward_fill, static_argnames=("axis",))
+    rng = np.random.default_rng(7)
+    x = rng.integers(-1, 9, size=(5, 9, 11)).astype(np.int32)
+    x[rng.random(x.shape) < 0.4] = INVALID
+    for axis in (-1, 0, 1):
+        initial = rng.integers(0, 9, size=np.delete(x.shape, axis)).astype(
+            np.int32)
+        want = np.asarray(jax_fill(jnp.asarray(x), jnp.asarray(initial),
+                                   axis=axis))
+        got = forward_fill(torch.tensor(x), torch.tensor(initial),
+                           axis=axis)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_import_loads_no_jax():
